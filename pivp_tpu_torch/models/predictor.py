@@ -1,0 +1,307 @@
+"""Action/state-conditioned ConvLSTM video predictor, CDNA head.
+
+Counterpart of `pivp_tpu/models/predictor.py`: the 7-stage trunk (convs,
+ConvLSTMs, flattened LayerNorms, state/action smear, skip connections),
+the CDNA head and the mask compositor, run as a Python loop over
+timesteps. This slice covers the feed-self rollout (`train=False`, the
+predict and serving path); scheduled-sampling training comes with the
+training slice, as do the DNA and STP heads.
+
+Parameters are a nested dict of tensors with the JAX package's keys and
+PyTorch's weight layouts (ops/layers.py); utils/weights.py maps them
+from and to the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from pivp_tpu_torch.config import ModelConfig
+from pivp_tpu_torch.models import heads
+from pivp_tpu_torch.ops import convlstm, layers, metrics, transforms
+from pivp_tpu_torch.ops.kernels import local_apply
+from pivp_tpu_torch.utils.device import resolve_device
+
+Params = Dict[str, Any]
+
+
+def _resolutions(cfg: ModelConfig) -> Tuple[Tuple[int, int], ...]:
+    h, w = cfg.image_height, cfg.image_width
+    return ((h, w), (h // 2, w // 2), (h // 4, w // 4), (h // 8, w // 8))
+
+
+def hidden5_dim(cfg: ModelConfig) -> int:
+    _, _, _, (h8, w8) = _resolutions(cfg)
+    return h8 * w8 * cfg.lstm_channels[4]
+
+
+def _require_cdna(cfg: ModelConfig) -> None:
+    if not cfg.is_cdna:
+        raise NotImplementedError(
+            f"the {cfg.model_type} head is not ported yet; this slice of "
+            "the port covers the CDNA head")
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device="cuda") -> Params:
+    """Build the parameter dict (float32, Glorot-uniform weights drawn
+    from `generator` on the CPU, then moved to `device`)."""
+    _require_cdna(cfg)
+    dev = resolve_device(device)
+    g = generator
+    (r0, r1, r2, r3) = _resolutions(cfg)
+    ec = cfg.enc_channels
+    lc = cfg.lstm_channels
+    c = cfg.color_channels
+    sa_dim = cfg.action_dim + cfg.state_dim
+    enc3_in = ec[2] + (sa_dim if cfg.use_state else 0)
+
+    params: Params = {
+        "enc0": layers.conv2d_init(g, c, ec[0], 5),
+        "enc1": layers.conv2d_init(g, lc[1], ec[1], 3),
+        "enc2": layers.conv2d_init(g, lc[3], ec[2], 3),
+        "enc3": layers.conv2d_init(g, enc3_in, ec[3], 1),
+        "enc4": layers.deconv2d_init(g, lc[4], ec[4], 3),
+        "enc5": layers.deconv2d_init(g, lc[5] + ec[1], ec[5], 3),
+        "enc6": layers.deconv2d_init(g, lc[6] + ec[0], ec[6], 3),
+        "lstm1": convlstm.conv_lstm_init(g, ec[0], lc[0]),
+        "lstm2": convlstm.conv_lstm_init(g, lc[0], lc[1]),
+        "lstm3": convlstm.conv_lstm_init(g, ec[1], lc[2]),
+        "lstm4": convlstm.conv_lstm_init(g, lc[2], lc[3]),
+        "lstm5": convlstm.conv_lstm_init(g, ec[3], lc[4]),
+        "lstm6": convlstm.conv_lstm_init(g, ec[4], lc[5]),
+        "lstm7": convlstm.conv_lstm_init(g, ec[5], lc[6]),
+        "norm_enc0": layers.layer_norm_flat_init((*r1, ec[0])),
+        "norm_enc6": layers.layer_norm_flat_init((*r0, ec[6])),
+        "hidden1": layers.layer_norm_flat_init((*r1, lc[0])),
+        "hidden2": layers.layer_norm_flat_init((*r1, lc[1])),
+        "hidden3": layers.layer_norm_flat_init((*r2, lc[2])),
+        "hidden4": layers.layer_norm_flat_init((*r2, lc[3])),
+        "hidden5": layers.layer_norm_flat_init((*r3, lc[4])),
+        "hidden6": layers.layer_norm_flat_init((*r2, lc[5])),
+        "hidden7": layers.layer_norm_flat_init((*r1, lc[6])),
+        "masks": layers.deconv2d_init(g, ec[6], cfg.num_masks + 1, 1),
+        "state_pred": layers.dense_init(g, sa_dim, cfg.state_dim),
+        "head": heads.cdna_head_init(g, cfg, hidden5_dim(cfg)),
+    }
+    return map_params(lambda t: t.to(dev), params)
+
+
+def map_params(fn, params: Params) -> Params:
+    """Apply `fn` to every tensor of a nested parameter dict."""
+    return {k: map_params(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in params.items()}
+
+
+def init_lstm_states(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device="cpu"):
+    (r0, r1, r2, r3) = _resolutions(cfg)
+    res = (r1, r1, r2, r2, r3, r2, r1)
+    return tuple(
+        convlstm.zero_state(batch, rh, rw, ch, dtype, device)
+        for (rh, rw), ch in zip(res, cfg.lstm_channels))
+
+
+class StepOutput(NamedTuple):
+    gen_image: torch.Tensor                     # (B, H, W, C)
+    gen_state: torch.Tensor                     # (B, state_dim)
+
+
+def forward_step(params: Params, cfg: ModelConfig, lstm_states,
+                 prev_image: torch.Tensor, state_action: torch.Tensor):
+    """Run the trunk + head + compositor for one timestep."""
+    relu = torch.relu
+    fb = cfg.forget_bias
+    gd = torch.float32 if cfg.lstm_gate_compute == "float32" else cfg.dtype
+
+    def cell(p, st, inp):
+        return convlstm.conv_lstm(p, st, inp, fb, gd,
+                                  use_kernel=cfg.use_kernel_gates)
+    eps = cfg.layer_norm_eps
+    s1, s2, s3, s4, s5, s6, s7 = lstm_states
+
+    # Stage 0: enc0 conv 5x5 s2 + LayerNorm.
+    x = layers.conv2d(params["enc0"], prev_image, stride=2)
+    enc0 = relu(layers.layer_norm_flat(params["norm_enc0"], x, eps))
+
+    # Stage 1: lstm1 -> LN -> lstm2 -> LN -> enc1 conv 3x3 s2.
+    s1, h = cell(params["lstm1"], s1, enc0)
+    h1 = layers.layer_norm_flat(params["hidden1"], h, eps)
+    s2, h = cell(params["lstm2"], s2, h1)
+    h2 = layers.layer_norm_flat(params["hidden2"], h, eps)
+    enc1 = relu(layers.conv2d(params["enc1"], h2, stride=2))
+
+    # Stage 2: lstm3 -> LN -> lstm4 -> LN -> enc2 conv 3x3 s2.
+    s3, h = cell(params["lstm3"], s3, enc1)
+    h3 = layers.layer_norm_flat(params["hidden3"], h, eps)
+    s4, h = cell(params["lstm4"], s4, h3)
+    h4 = layers.layer_norm_flat(params["hidden4"], h, eps)
+    enc2 = relu(layers.conv2d(params["enc2"], h4, stride=2))
+
+    # Stage 3: smear state/action over space, concat, enc3 conv 1x1.
+    x = enc2
+    if cfg.use_state:
+        b, hh, ww, _ = x.shape
+        smear = state_action[:, None, None, :].to(x.dtype).expand(
+            b, hh, ww, state_action.shape[-1])
+        x = torch.cat([x, smear], dim=-1)
+    enc3 = relu(layers.conv2d(params["enc3"], x, stride=1, padding=0))
+
+    # Stage 4: lstm5 -> LN(hidden5) -> enc4 deconv up to H/4.
+    s5, h = cell(params["lstm5"], s5, enc3)
+    h5 = layers.layer_norm_flat(params["hidden5"], h, eps)
+    (r0, r1, r2, _) = _resolutions(cfg)
+    enc4 = relu(layers.deconv2d(params["enc4"], h5, stride=2, padding=1,
+                                outsize=r2))
+
+    # Stage 5: lstm6 -> LN -> skip(enc1) -> enc5 deconv up to H/2.
+    s6, h = cell(params["lstm6"], s6, enc4)
+    h6 = layers.layer_norm_flat(params["hidden6"], h, eps)
+    x = torch.cat([h6, enc1], dim=-1)
+    enc5 = relu(layers.deconv2d(params["enc5"], x, stride=2, padding=1,
+                                outsize=r1))
+
+    # Stage 6: lstm7 -> LN -> skip(enc0) -> enc6 deconv up to H + LN.
+    s7, h = cell(params["lstm7"], s7, enc5)
+    h7 = layers.layer_norm_flat(params["hidden7"], h, eps)
+    x = torch.cat([h7, enc0], dim=-1)
+    x = layers.deconv2d(params["enc6"], x, stride=2, padding=1, outsize=r0)
+    enc6 = relu(layers.layer_norm_flat(params["norm_enc6"], x, eps))
+
+    # Head + masks + composite. With merge_output_convs the masks deconv
+    # and the head's enc7 deconv (both 1x1 on enc6) run as one conv over
+    # concatenated output channels, split afterwards.
+    enc7_raw = None
+    if cfg.merge_output_convs:
+        mw, hw = params["masks"], params["head"]["enc7"]
+        merged = {"w": torch.cat([mw["w"], hw["w"]], dim=1),
+                  "b": torch.cat([mw["b"], hw["b"]])}
+        out = layers.deconv2d(merged, enc6, stride=1, padding=0)
+        n_mask = cfg.num_masks + 1
+        mask_logits = out[..., :n_mask]
+        enc7_raw = out[..., n_mask:]
+    else:
+        mask_logits = layers.deconv2d(params["masks"], enc6, stride=1,
+                                      padding=0)
+    if cfg.fused_cdna:
+        synth, kerns, _ = heads.cdna_head_parts(
+            params["head"], cfg, enc6, h5, enc7_raw)
+        local = local_apply.local_kernel_apply if cfg.use_kernel else None
+        gen_image = transforms.fused_cdna_composite(
+            prev_image, synth, kerns, mask_logits, local_apply=local,
+            scramble=cfg.chainer_mask_scramble)
+    else:
+        candidates, _ = heads.cdna_head(params["head"], cfg, enc6, h5,
+                                           prev_image, enc7_raw)
+        gen_image, _ = transforms.mask_composite(
+            prev_image, candidates[:, :cfg.num_masks], mask_logits,
+            scramble=cfg.chainer_mask_scramble)
+
+    # State predictor fed back each step.
+    gen_state = layers.dense(
+        params["state_pred"],
+        state_action.to(torch.promote_types(state_action.dtype,
+                                            torch.float32)))
+
+    new_states = (s1, s2, s3, s4, s5, s6, s7)
+    return new_states, StepOutput(gen_image, gen_state)
+
+
+def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
+                   actions: torch.Tensor, states: torch.Tensor):
+    """The feed-self prediction loop: ground truth for the first
+    context_frames steps, then the model's own predictions.
+
+    images: (T, B, H, W, C) float in [0, 1] (or uint8), time-major;
+    actions/states: (T, B, 5). Returns (gen_images (T-1, B, H, W, C) in
+    the compute dtype, gen_states (T-1, B, S))."""
+    _require_cdna(cfg)
+    batch = images.shape[1]
+    dtype = cfg.dtype
+    sdt = torch.promote_types(torch.float32, dtype)
+    if not images.is_floating_point():
+        images = images.to(torch.float32) / 255.0
+    images_c = images.to(dtype)
+    if dtype != torch.float32:
+        params = map_params(
+            lambda p: p.to(dtype) if p.dtype == torch.float32 else p,
+            params)
+
+    lstm_states = init_lstm_states(cfg, batch, dtype, images.device)
+    prev_gen = torch.zeros_like(images_c[0])
+    current_state = states[0].to(sdt)
+    gen_images, gen_states = [], []
+    for t in range(images.shape[0] - 1):
+        prev_image = images_c[t] if t < cfg.context_frames else prev_gen
+        state_action = torch.cat([actions[t].to(sdt), current_state],
+                                 dim=-1).to(sdt)
+        lstm_states, out = forward_step(params, cfg, lstm_states,
+                                        prev_image, state_action)
+        prev_gen, current_state = out.gen_image, out.gen_state
+        gen_images.append(out.gen_image)
+        gen_states.append(out.gen_state)
+    return torch.stack(gen_images), torch.stack(gen_states)
+
+
+def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
+            actions: torch.Tensor, states: torch.Tensor, *,
+            train: bool = False) -> Dict[str, torch.Tensor]:
+    """Run the full T-step prediction and compute losses and metrics.
+
+    `train=False` is the feed-self rollout (rollout_frames). Returns the
+    JAX package's dict: loss, psnr_all, gen_images (T-1, B, H, W, C),
+    gen_states, per-frame recon/psnr/state curves, psnr_per_image, ssim
+    and the (T-ctx, B) matrices."""
+    if train:
+        raise NotImplementedError(
+            "train=True (scheduled-sampling training) belongs to the "
+            "training slice of the port, which is not ported yet")
+    gen_images, gen_states = rollout_frames(params, cfg, images, actions,
+                                            states)
+    sdt = torch.promote_types(torch.float32, cfg.dtype)
+    if not images.is_floating_point():
+        images = images.to(torch.float32) / 255.0
+    ctx = cfg.context_frames
+    true_imgs = images[ctx:].to(sdt)
+    pred_imgs = gen_images[ctx - 1:].to(sdt)
+    true_states = states[ctx:].to(sdt)
+    pred_states = gen_states[ctx - 1:]
+    n = images.shape[0] - ctx
+
+    def per_frame(fn, a, b):
+        return torch.stack([fn(a[i], b[i]) for i in range(n)])
+
+    recon_costs = per_frame(metrics.mean_squared_error, true_imgs,
+                            pred_imgs)
+    psnrs = per_frame(metrics.peak_signal_to_noise_ratio, true_imgs,
+                      pred_imgs)
+    state_costs = per_frame(metrics.mean_squared_error, true_states,
+                            pred_states) * cfg.state_cost_weight
+    ssim_tb = per_frame(metrics.ssim_per_image, true_imgs, pred_imgs)
+    return {
+        "loss": (recon_costs.sum() + state_costs.sum()) / n,
+        "psnr_all": psnrs.sum(),
+        "gen_images": gen_images,
+        "gen_states": gen_states,
+        "recon_costs": recon_costs,
+        "psnrs": psnrs,
+        "state_costs": state_costs,
+        "psnr_per_image": per_frame(metrics.psnr_per_image, true_imgs,
+                                    pred_imgs).mean(),
+        "ssim": ssim_tb.mean(dim=1).mean(),
+        "recon_mse_tb": per_frame(metrics.per_image_mse, true_imgs,
+                                  pred_imgs),
+        "state_mse_tb": per_frame(metrics.per_image_mse, true_states,
+                                  pred_states),
+        "ssim_tb": ssim_tb,
+    }
+
+
+@torch.inference_mode()
+def predict(params: Params, cfg: ModelConfig, images: torch.Tensor,
+            actions: torch.Tensor,
+            states: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Inference: the feed-self rollout after the context frames."""
+    return rollout(params, cfg, images, actions, states, train=False)

@@ -1,0 +1,92 @@
+"""The weight bridge between the JAX package's parameters and the port's.
+
+Both packages key parameters by the same '/'-joined paths
+(`enc0/w`, `lstm3/b`, `head/cdna_kerns/w`, ...). They differ in the
+weight layouts:
+
+  * conv        JAX (kh, kw, in, out)  ->  port (out, in, kh, kw)
+  * deconv      JAX (kh, kw, in, out)  ->  port (in, out, kh, kw), the
+                `conv_transpose2d` weight, with no spatial flip
+  * dense       JAX (in, out)          ->  port (out, in)
+  * LayerNorm scale/bias and all biases keep their shape.
+
+With these mappings an npz written by either package loads into the
+other (utils/checkpoint.py writes the JAX layout).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+# Layers whose 4-D weight is a transposed conv; every other 4-D weight
+# is a conv.
+DECONV_LAYERS = frozenset({"enc4", "enc5", "enc6", "masks", "head/enc7"})
+
+
+def _layer(key: str) -> str:
+    return key.rsplit("/", 1)[0]
+
+
+def _jax_to_port(key: str, a: np.ndarray) -> np.ndarray:
+    if not key.endswith("/w"):
+        return a
+    if a.ndim == 4:
+        perm = (2, 3, 0, 1) if _layer(key) in DECONV_LAYERS else (3, 2, 0, 1)
+        return np.transpose(a, perm)
+    if a.ndim == 2:
+        return a.T
+    return a
+
+
+def _port_to_jax(key: str, a: np.ndarray) -> np.ndarray:
+    if not key.endswith("/w"):
+        return a
+    if a.ndim == 4:
+        perm = (2, 3, 0, 1) if _layer(key) in DECONV_LAYERS else (2, 3, 1, 0)
+        return np.transpose(a, perm)
+    if a.ndim == 2:
+        return a.T
+    return a
+
+
+def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {'/'-joined key: leaf}."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten(v, key + "/"))
+        else:
+            flat[key] = v
+    return flat
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'/'-joined key: leaf} -> nested dict."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The JAX package's parameters, flat and as numpy arrays, -> the
+    port's nested dict of CPU tensors in PyTorch layouts."""
+    return unflatten({k: torch.tensor(_jax_to_port(k, np.asarray(v)))
+                      for k, v in flat.items()})
+
+
+def to_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's nested parameter dict -> the JAX package's flat
+    '/'-keyed numpy arrays."""
+    return {
+        k: np.ascontiguousarray(
+            _port_to_jax(k, v.detach().to("cpu").numpy()))
+        for k, v in flatten(params).items()}

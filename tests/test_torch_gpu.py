@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, and the kernel rollout against the plain-op rollout.
+
+Every test here is marked `gpu` and skips without a CUDA device. This
+file imports no JAX, so it also runs where JAX is not installed; run it
+there with `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
+(the repo's conftest.py sets JAX up)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pivp_tpu_torch.config import ModelConfig
+from pivp_tpu_torch.models import predictor
+from pivp_tpu_torch.ops.kernels import local_apply as la
+from pivp_tpu_torch.ops.kernels import lstm_gates as lg
+from pivp_tpu_torch.utils.device import resolve_device
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return resolve_device("cuda")
+
+
+def _close(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.allclose(got.float(), want.float(), rtol=tol, atol=tol), \
+        float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((2, 16, 16, 3), 5), ((2, 16, 16, 3), 3), ((1, 9, 13, 1), 5),
+    ((1, 20, 7, 8), 7), ((1, 300, 17, 5), 5)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_local_apply_kernel_matches_plain(cuda, shape, k, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = torch.rand(shape[:3] + (k * k,), generator=g, device=cuda)
+    w = (w / w.sum(-1, keepdim=True)).to(dtype)
+    before = la.local_kernel_apply.launches
+    got = la.local_kernel_apply(x, w)
+    assert la.local_kernel_apply.launches == before + 1
+    _close(got, la.local_kernel_apply_plain(x, w), tol)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 3])
+@pytest.mark.parametrize("forget_bias", [0.0, 1.0, 5.0])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2e-2)])
+def test_lstm_gates_kernel_matches_plain(cuda, C, forget_bias, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(C)
+    gates = (torch.randn((2, 8, 8, 4 * C), generator=g, device=cuda)
+             * 1.5).to(dtype)
+    c = torch.randn((2, 8, 8, C), generator=g, device=cuda).to(dtype)
+    before = lg.fused_lstm_gates.launches
+    got = lg.fused_lstm_gates(gates, c, forget_bias)
+    assert lg.fused_lstm_gates.launches == before + 1
+    want = lg.fused_lstm_gates_plain(gates, c, forget_bias)
+    _close(got[0], want[0], tol)
+    _close(got[1], want[1], tol)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 4, 4, 3, device=cuda)
+    w = torch.zeros(1, 4, 4, 25, device=cuda)
+    with pytest.raises(TypeError):
+        la.local_kernel_apply(x.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        la.local_kernel_apply(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="devices"):
+        la.local_kernel_apply(x, w.cpu())
+    gates = torch.zeros(1, 4, 4, 12, device=cuda)
+    with pytest.raises(TypeError):
+        lg.fused_lstm_gates(gates.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        lg.fused_lstm_gates(gates.transpose(1, 2), x.transpose(1, 2))
+
+
+def test_kernel_rollout_matches_plain_rollout(cuda):
+    cfg = ModelConfig(image_height=32, image_width=32, sequence_length=5)
+    params = predictor.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device=cuda)
+    r = np.random.RandomState(0)
+    data = [torch.as_tensor(a, device=cuda) for a in (
+        r.rand(5, 4, 32, 32, 3).astype(np.float32),
+        r.randn(5, 4, 5).astype(np.float32),
+        r.randn(5, 4, 5).astype(np.float32))]
+    la.local_kernel_apply.launches = lg.fused_lstm_gates.launches = 0
+    out_k = predictor.predict(params, cfg, *data)
+    assert la.local_kernel_apply.launches == 4
+    assert lg.fused_lstm_gates.launches == 28
+    plain = dataclasses.replace(cfg, use_kernel=False, use_kernel_gates=False)
+    out_p = predictor.predict(params, plain, *data)
+    _close(out_k["gen_images"], out_p["gen_images"], 1e-4)
+    assert float((out_k["psnrs"] - out_p["psnrs"]).abs().max()) <= 0.01

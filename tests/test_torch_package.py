@@ -1,0 +1,73 @@
+"""Guards of the PyTorch port's boundaries: it imports neither JAX nor
+the JAX package, and its entry points never carry on on the CPU unless
+asked to."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pivp_tpu_torch.config import ModelConfig
+from pivp_tpu_torch.inference import predict
+from pivp_tpu_torch.models import predictor
+from pivp_tpu_torch.ops.kernels import build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import pivp_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pivp_tpu_torch.__path__,
+                                               "pivp_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "pivp_tpu" or m.startswith("pivp_tpu."))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_importing_kernels_builds_nothing():
+    # build.load() runs only at the first launch on a CUDA tensor.
+    assert build._loaded is None or torch.cuda.is_available()
+
+
+def test_entry_points_raise_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    cfg = ModelConfig(image_height=16, image_width=16, sequence_length=3,
+                      enc_channels=(8, 8, 8, 8, 16, 8, 8),
+                      lstm_channels=(8, 8, 8, 8, 16, 8, 8))
+    params = predictor.init_params(torch.Generator(), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.run_prediction(cfg, params,
+                               np.zeros((3, 16, 16, 3), np.float32),
+                               np.zeros((3, 5), np.float32),
+                               np.zeros((3, 5), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.load_model(str(tmp_path / "missing.npz"), "CDNA", 10, 2,
+                           True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predictor.init_params(torch.Generator(), cfg)
+
+
+def test_heads_of_later_slices_raise():
+    cfg = ModelConfig(model_type="STP")
+    with pytest.raises(NotImplementedError, match="CDNA"):
+        predictor.init_params(torch.Generator(), cfg, device="cpu")
