@@ -1,37 +1,59 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (pivp_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's CDNA feed-self prediction path at full width (10
+Drives the port's CDNA prediction and training paths at full width (10
 masks, channel plans (32,32,64,64,128,96,64) / (32,32,64,64,128,64,32),
-64x64x3 frames, T=10, 2 context frames, use_state, float32, batch 32)
-with random weights made from --seed, in phases:
+64x64x3 frames, T=10, 2 context frames, use_state, float32 with TF32
+off, batch 32; training with scheduled sampling k=900 and Chainer Adam at
+lr 1e-3) with random weights and synthetic data made from --seed, in
+phases:
 
   1. device   a CUDA device is required; prints its name and power limit
   2. build    compiles every CUDA kernel from pivp_tpu_torch/csrc
-  3. kernels  each kernel against its plain PyTorch version on the card,
-              at the main path's shapes, with times and bounds
+  3. kernels  each kernel, forward and backward, against its plain
+              PyTorch version on the card, at the main paths' shapes,
+              with times and bounds
   4. serve    seeded params -> save_npz -> load_model -> make_serve_fn,
               --requests requests of batch 32; the launch counters must
-              show every kernel launched on that path; the rollout with
-              both kernel switches off, and a small batch on the CPU,
-              must agree with it
+              show every forward kernel launched on that path; the
+              rollout with both kernel switches off, and a small batch on
+              the CPU, must agree with it
   5. predict  predict_and_render on a synthetic processed-data dir
               renders the contact-sheet GIF
+  6. train    train_cli (in process) runs --train_steps iterations at
+              batch 32 on synthetic sequences, across an epoch boundary
+              with one validation sweep and one checkpoint; the launch
+              counters must show every kernel launched on that path, and
+              one train step must launch each local-apply kernel 9 times
+              and each gate kernel 63 times; one step's gradients
+              through the backward kernels must agree with the same
+              step through their plain versions, tensor by tensor
+              (within float32's own run-to-run change where that is
+              larger), and with the plain ops' (at iterations 0 and
+              6000) and the CPU's (2 sequences) over the whole gradient
+              (see GRAD_TOL); the median time of a train step and one
+              profiled step
 
-Any failure exits non-zero. The last lines are a `kernels` JSON line,
-the card's name and power limit, and `{"ok": true, "device": ...}`.
+Any failure exits non-zero. The last lines are a `kernels` JSON line
+(the forward kernels' launches are the serve phase's, the backward
+kernels' the train phase's), the card's name and power limit, and
+`{"ok": true, "device": ...}`.
 
-Usage: python3 chip_smoke.py [--seed 0] [--requests 3] [--out DIR]
+Usage: python3 chip_smoke.py [--seed 0] [--requests 3] [--train_steps 3]
+                             [--out DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +70,24 @@ BATCH = 32
 LOCAL_APPLY_SHAPE = (BATCH, 64, 64, 3)
 GATE_CELLS = ((3, 32, 32, 32), (3, 16, 16, 64), (1, 8, 8, 128))
 GATE_LAUNCHES_PER_STEP = sum(n for n, _, _, _ in GATE_CELLS)
+# Timesteps of one rollout (T - 1) and predicted frames of one sequence.
+STEPS, PREDICTED = 9, 8
+# Gradient agreement, per-tensor relative Frobenius difference. It
+# gates the backward kernels: one step through the kernels against the
+# same step with the same forward kernels and the plain backward
+# versions, so both share every activation and every ReLU decision, with
+# cudnn.deterministic on. A tensor whose float32 gradient is a sum of
+# large cancelling terms (lstm1/w) moves by about this much under any
+# rounding change: the plain ops run twice with cuDNN's default
+# (run-order dependent) algorithms show it, and each tensor's limit is
+# the larger of GRAD_TOL and twice that measured change. Two steps
+# through different forward arithmetic (kernels vs plain ops, card vs
+# CPU) are held to GRAD_TOL over the whole gradient, and each tensor is
+# reported: a unit whose pre-activation lies within float32 rounding of
+# zero takes the other side of its ReLU on one of them, which moves the
+# small gradients of the first stages by about GRAD_TOL, on either side
+# (the float64 distances are printed for such tensors).
+GRAD_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -207,9 +247,129 @@ def check_lstm_gates(gen: torch.Generator) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
-def profile_request(serve, request, trace_path: str) -> None:
-    """One served request under torch.profiler: the device's busy share
-    of the request's wall time and the kernels that take it."""
+def check_local_apply_bwd(gen: torch.Generator) -> list:
+    from pivp_tpu_torch.ops.kernels import local_apply as la
+
+    cases = [  # (shape, K, dtype, tolerance)
+        (LOCAL_APPLY_SHAPE, 5, torch.float32, 1e-5),
+        (LOCAL_APPLY_SHAPE, 5, torch.bfloat16, 2e-2),
+        ((4, 256, 256, 3), 5, torch.float32, 1e-5),
+        (LOCAL_APPLY_SHAPE, 3, torch.float32, 1e-5),
+    ]
+    rows = {}
+    for shape, k, dtype, tol in cases:
+        x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = torch.rand(shape[:3] + (k * k,), generator=gen, device="cuda")
+        w = (w / w.sum(-1, keepdim=True)).to(dtype)
+        got_dw = la.local_kernel_apply_bwd_w(x, g, k)
+        got_dx = la.local_kernel_apply_bwd_x(w, g)
+        want_dx, want_dw = la.local_kernel_apply_bwd_plain(x, w, g)
+        torch.cuda.synchronize()
+        for name, got, want in (("dW", got_dw, want_dw),
+                                ("dX", got_dx, want_dx)):
+            err = max_err(got, want)
+            log(f"local_apply {name} {shape} K={k} {dtype}: "
+                f"max|kernel-plain| {err:.3e} (tol {tol:g})")
+            if not close(got, want, tol):
+                fail(f"local_apply {name} {shape} K={k} {dtype}: "
+                     f"{err} > {tol}")
+            if name not in rows:
+                b, h, wd, c = shape
+                nbytes = (2 * b * h * wd * c + b * h * wd * k * k) * 4
+                if name == "dW":
+                    kern = lambda: la.local_kernel_apply_bwd_w(x, g, k)  # noqa: E731
+                    plain = lambda: la.local_kernel_apply_bwd_w_plain(x, g, k)  # noqa: E731
+                else:
+                    kern = lambda: la.local_kernel_apply_bwd_x(w, g)  # noqa: E731
+                    plain = lambda: la.local_kernel_apply_bwd_x_plain(w, g)  # noqa: E731
+                ms = cuda_ms(kern, graph=True)
+                plain_ms = cuda_ms(plain, graph=True)
+                call_ms = cuda_ms(kern)
+                bms, by = bound_ms(nbytes, 2 * k * k * c * b * h * wd)
+                log(f"local_apply {name} {shape}x{k * k} f32, device time "
+                    f"per call (CUDA graph): kernel {ms * 1e3:.2f} us, "
+                    f"plain {plain_ms * 1e3:.2f} us, bound "
+                    f"{bms * 1e3:.2f} us ({by}); kernel called from "
+                    f"Python {call_ms * 1e3:.2f} us per call")
+                rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                  bms=bms, by=by)
+    return [
+        {"name": "local_kernel_apply_bwd_w", "route": "cuda",
+         "source": "pivp_tpu_torch/csrc/local_apply.cu",
+         "replaces": "pivp_tpu/ops/pallas/local_apply.py:247",
+         "max_abs_err": rows["dW"]["err"], "ms": rows["dW"]["ms"],
+         "plain_ms": rows["dW"]["plain_ms"], "bound_ms": rows["dW"]["bms"],
+         "bound_by": rows["dW"]["by"], "library_ms": None},
+        {"name": "local_kernel_apply_bwd_x", "route": "cuda",
+         "source": "pivp_tpu_torch/csrc/local_apply.cu",
+         "replaces": "pivp_tpu/ops/pallas/local_apply.py:293",
+         "max_abs_err": rows["dX"]["err"], "ms": rows["dX"]["ms"],
+         "plain_ms": rows["dX"]["plain_ms"], "bound_ms": rows["dX"]["bms"],
+         "bound_by": rows["dX"]["by"], "library_ms": None},
+    ]
+
+
+def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
+    from pivp_tpu_torch.ops.kernels import lstm_gates as lg
+
+    worst = 0.0
+    step_ms = step_plain_ms = step_call_ms = step_bytes = step_ops = 0.0
+    for n_cells, h, w, c in GATE_CELLS:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            shape = (BATCH, h, w, c)
+            gates = (torch.randn(shape[:3] + (4 * c,), generator=gen,
+                                 device="cuda") * 1.5).to(dtype)
+            cc, g_c, g_h = (torch.randn(shape, generator=gen,
+                                        device="cuda").to(dtype)
+                            for _ in range(3))
+            # Autograd passes None for the unused new_c of the last step.
+            for gc in (g_c, None):
+                got = lg.fused_lstm_gates_bwd(gates, cc, gc, g_h, 1.0)
+                want = lg.fused_lstm_gates_bwd_plain(gates, cc, gc, g_h, 1.0)
+                torch.cuda.synchronize()
+                err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+                log(f"lstm_gates bwd {shape} {dtype} g_c "
+                    f"{'given' if gc is not None else 'None'}: "
+                    f"max|kernel-plain| {err:.3e} (tol {tol:g})")
+                if not (close(got[0], want[0], tol)
+                        and close(got[1], want[1], tol)):
+                    fail(f"lstm_gates bwd {shape} {dtype}: {err} > {tol}")
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            if dtype == torch.float32:
+                step_ms += n_cells * cuda_ms(
+                    lambda: lg.fused_lstm_gates_bwd(gates, cc, g_c, g_h, 1.0),
+                    graph=True)
+                step_plain_ms += n_cells * cuda_ms(
+                    lambda: lg.fused_lstm_gates_bwd_plain(gates, cc, g_c,
+                                                          g_h, 1.0),
+                    graph=True)
+                step_call_ms += n_cells * cuda_ms(
+                    lambda: lg.fused_lstm_gates_bwd(gates, cc, g_c, g_h, 1.0))
+                elems = BATCH * h * w * c
+                # Reads gates (4), c, g_c, g_h; writes dgates (4) and dc.
+                step_bytes += n_cells * 12 * elems * 4
+                # Per element: the forward's 19 operations again, then
+                # dct (4), the four gate derivatives (12) and dc (1).
+                step_ops += n_cells * 36 * elems
+    bms, by = bound_ms(step_bytes, step_ops)
+    log(f"lstm_gates bwd, the {GATE_LAUNCHES_PER_STEP} cells of one timestep "
+        f"at b{BATCH} f32, device time (CUDA graph): kernel "
+        f"{step_ms * 1e3:.2f} us, plain {step_plain_ms * 1e3:.2f} us, bound "
+        f"{bms * 1e3:.2f} us ({by}); kernel called from Python "
+        f"{step_call_ms * 1e3:.2f} us")
+    return {"name": "fused_lstm_gates_bwd", "route": "cuda",
+            "source": "pivp_tpu_torch/csrc/lstm_gates.cu",
+            "replaces": "pivp_tpu/ops/pallas/lstm_gates.py:140",
+            "max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def profile_request(serve, request, trace_path, what="request") -> None:
+    """One call of `serve(*request)` under torch.profiler: the device's
+    busy share of its wall time and the kernels that take it; the trace
+    goes to `trace_path` unless it is None."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -218,14 +378,22 @@ def profile_request(serve, request, trace_path: str) -> None:
         serve(*request)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(trace_path)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
+    # A record_function range (torch.optim's "Optimizer.step#...") also
+    # appears as a device-side span around the kernels it covers, which
+    # are counted on their own.
+    spans = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in spans]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"profiled request: wall {wall_us / 1e3:.3f} ms under the "
+    log(f"profiled {what}: wall {wall_us / 1e3:.3f} ms under the "
         f"profiler, device busy {busy_us / 1e3:.3f} ms "
         f"({100 * busy_us / wall_us:.1f}%), {sum(e.count for e in kernels)}"
-        f" kernel launches; trace {trace_path}")
+        f" kernel launches"
+        + (f"; trace {trace_path}" if trace_path is not None else ""))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total:10.1f} us  x{e.count:<4d} "
             f"{e.key[:100]}")
@@ -251,28 +419,42 @@ def rollout_flops(params, cfg, batch: int) -> float:
     return per_step * (cfg.sequence_length - 1)
 
 
+def _counted():
+    """The kernel wrappers with a launch counter, in the order of the
+    `kernels` line."""
+    from pivp_tpu_torch.ops.kernels import local_apply as la
+    from pivp_tpu_torch.ops.kernels import lstm_gates as lg
+
+    return (la.local_kernel_apply, lg.fused_lstm_gates,
+            la.local_kernel_apply_bwd_w, la.local_kernel_apply_bwd_x,
+            lg.fused_lstm_gates_bwd)
+
+
 def reset_counters() -> None:
-    from pivp_tpu_torch.ops.kernels import local_apply, lstm_gates
-
-    local_apply.local_kernel_apply.launches = 0
-    lstm_gates.fused_lstm_gates.launches = 0
+    for fn in _counted():
+        fn.launches = 0
 
 
-def read_counters():
-    from pivp_tpu_torch.ops.kernels import local_apply, lstm_gates
-
-    return (local_apply.local_kernel_apply.launches,
-            lstm_gates.fused_lstm_gates.launches)
+def read_counters() -> tuple:
+    return tuple(fn.launches for fn in _counted())
 
 
-def check_counters(what: str, rollouts: int, steps: int) -> tuple:
-    la, lg = read_counters()
-    want = (rollouts * steps, rollouts * steps * GATE_LAUNCHES_PER_STEP)
-    log(f"{what}: launches local_kernel_apply {la}, fused_lstm_gates {lg} "
-        f"(expected {want[0]}, {want[1]})")
-    if (la, lg) != want:
-        fail(f"{what}: launch counts {(la, lg)} != {want}")
-    return la, lg
+def check_counters(what: str, fwd_rollouts: int, bwd_rollouts: int = 0,
+                   steps: int = STEPS) -> tuple:
+    """Each forward kernel launches once per rollout step, each backward
+    kernel once per step of a differentiated rollout; the gate kernels
+    once per ConvLSTM cell of a step."""
+    got = read_counters()
+    want = (fwd_rollouts * steps,
+            fwd_rollouts * steps * GATE_LAUNCHES_PER_STEP,
+            bwd_rollouts * steps, bwd_rollouts * steps,
+            bwd_rollouts * steps * GATE_LAUNCHES_PER_STEP)
+    names = [fn.__name__ for fn in _counted()]
+    log(f"{what}: launches " + ", ".join(
+        f"{n} {g} (expected {w})" for n, g, w in zip(names, got, want)))
+    if got != want:
+        fail(f"{what}: launch counts {got} != {want}")
+    return got
 
 
 def serve_phase(args, card: str):
@@ -317,7 +499,7 @@ def serve_phase(args, card: str):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = check_counters(f"serve ({args.requests} requests)",
-                              args.requests, t - 1)
+                              args.requests)
     profile_request(serve, request, os.path.join(args.out, "serve_trace.json"))
     if frames.shape != (t - ctx, BATCH, cfg.image_height, cfg.image_width,
                         cfg.color_channels) or frames.dtype != torch.uint8:
@@ -377,21 +559,253 @@ def predict_phase(args) -> None:
         models_dir=os.path.join(args.out, "models"), data_dir=data_dir,
         time_step=8, downscale_factor=0.25, device="cuda")
     torch.cuda.synchronize()
-    check_counters("predict_and_render", 1, 9)
+    check_counters("predict_and_render", 1)
     if not (os.path.exists(path) and os.path.getsize(path) > 0):
         fail(f"no prediction image at {path}")
     log(f"predict_and_render wrote {path} ({os.path.getsize(path)} bytes)")
+
+
+def rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+def norms_of_difference(keys, got, want) -> tuple:
+    """Per-tensor relative differences and that of the whole gradient."""
+    diffs, num, den = {}, 0.0, 0.0
+    for k, a, b in zip(keys, got, want):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d2, n2 = float((a - b).square().sum()), float(b.square().sum())
+        diffs[k] = (d2 / (n2 + 1e-60)) ** 0.5
+        num, den = num + d2, den + n2
+    return diffs, (num / (den + 1e-60)) ** 0.5
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """The kernels' autograd Functions with their backward through the
+    plain versions (the forward kernels unchanged)."""
+    from pivp_tpu_torch.ops.kernels import local_apply as la
+    from pivp_tpu_torch.ops.kernels import lstm_gates as lg
+
+    saved = (la.local_kernel_apply_bwd_w, la.local_kernel_apply_bwd_x,
+             lg.fused_lstm_gates_bwd)
+    la.local_kernel_apply_bwd_w = la.local_kernel_apply_bwd_w_plain
+    la.local_kernel_apply_bwd_x = la.local_kernel_apply_bwd_x_plain
+    lg.fused_lstm_gates_bwd = lg.fused_lstm_gates_bwd_plain
+    try:
+        yield
+    finally:
+        (la.local_kernel_apply_bwd_w, la.local_kernel_apply_bwd_x,
+         lg.fused_lstm_gates_bwd) = saved
+
+
+def check_grads(what: str, keys, got, want, noise=None,
+                exact=None) -> None:
+    """`got` against `want`. With `noise` (each tensor's run-to-run
+    change), every tensor within the larger of GRAD_TOL and twice its
+    noise; without it, the whole gradient within GRAD_TOL. The tensors
+    beyond GRAD_TOL are listed, with both sides' distance from `exact`
+    (the float64 gradient of the plain ops) when it is given."""
+    diffs, whole = norms_of_difference(keys, got, want)
+    worst = max(diffs, key=diffs.get)
+    beyond = [k for k in keys if diffs[k] > GRAD_TOL]
+    notes = []
+    for k in beyond:
+        note = f"{k} {diffs[k]:.3e}"
+        if noise is not None:
+            note += f" (run-to-run {noise[k]:.3e})"
+        if exact is not None:
+            i = keys.index(k)
+            note += (f" (vs float64: {rel_frobenius(got[i], exact[i]):.3e}"
+                     f", other side {rel_frobenius(want[i], exact[i]):.3e})")
+        notes.append(note)
+    log(f"{what}: whole gradient {whole:.3e}, worst tensor {worst} "
+        f"{diffs[worst]:.3e}; {len(keys) - len(beyond)} of {len(keys)} "
+        f"tensors within {GRAD_TOL:g}"
+        + ("; beyond it: " + "; ".join(notes) if notes else ""))
+    if noise is not None:
+        bad = [k for k in beyond if diffs[k] > 2 * noise[k]]
+    else:
+        bad = ["whole gradient"] if whole > GRAD_TOL else []
+    if bad:
+        fail(f"{what}: {bad} disagree beyond the limit")
+
+
+def grads_float64(ts, predictor, sampling, params, cfg, batch, it, seed):
+    """The gradient of the same step through the plain ops in float64."""
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64",
+                                lstm_gate_compute="compute",
+                                use_kernel=False, use_kernel_gates=False)
+    p64 = predictor.map_params(
+        lambda p: p.detach().double().requires_grad_(), params)
+    grads, _ = ts.grads_and_metrics(p64, cfg64,
+                                    tuple(a.double() for a in batch), it,
+                                    sampling.generator(seed, it))
+    return grads
+
+
+def train_phase(args, card: str) -> tuple:
+    from pivp_tpu_torch.config import ModelConfig
+    from pivp_tpu_torch.data import synthetic
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+    from pivp_tpu_torch.training import train_cli
+    from pivp_tpu_torch.utils import weights
+
+    # The training CLI in process: 80 synthetic sequences split 64 / 16,
+    # so the second batch of 32 closes epoch 1 (and no later one does
+    # before step 4), which runs one validation sweep (one batch, 16
+    # sequences padded to 32) and saves checkpoint 1; then the final one.
+    # The run directory (~120 MB of npz at full width) is checked, then
+    # deleted.
+    models = tempfile.mkdtemp(dir=args.out, prefix="train-")
+    reset_counters()
+    t0 = time.perf_counter()
+    result = train_cli.main([
+        "--synthetic", "80", "--train_val_split", "0.8",
+        "--num_iterations", str(args.train_steps), "--batch_size",
+        str(BATCH), "--validation_interval", "1", "--save_interval", "1",
+        "--seed", str(args.seed), "--output_dir", models,
+        "--event_log_dir", models, "--run_name", args.run_name,
+        "--device", "cuda"], standalone_mode=False)
+    torch.cuda.synchronize()
+    log(f"train_cli: {args.train_steps} steps, 1 validation sweep, 2 "
+        f"checkpoints in {time.perf_counter() - t0:.1f} s")
+    launches = check_counters(
+        f"train_cli ({args.train_steps} steps + 1 validation batch)",
+        args.train_steps + 1, args.train_steps)
+    save_dir = result["save_dir"]
+    for name in ("training-1.npz", "state-1.npz", "training-final.npz",
+                 "state-final.npz", "training-global_losses.npy",
+                 "training-global_psnr_all.npy",
+                 "training-global_losses_valid.npy",
+                 "training-global_psnr_all_valid.npy"):
+        if not os.path.exists(os.path.join(save_dir, name)):
+            fail(f"train_cli wrote no {name} in {save_dir}")
+    curves = [np.load(os.path.join(save_dir, f"training-global_{n}.npy"))
+              for n in ("losses", "psnr_all", "losses_valid",
+                        "psnr_all_valid")]
+    if not all(c.shape == (1, 5) and np.isfinite(c).all() for c in curves):
+        fail(f"train_cli curves {[c.tolist() for c in curves]}")
+    log(f"train_cli epoch 1: train loss [mean,std,min,max,median] "
+        f"{curves[0][0].tolist()}, validation loss {curves[2][0, 0]:.6f}, "
+        f"validation PSNR {curves[3][0, 0]:.4f} dB (summed over the "
+        f"predicted frames)")
+    shutil.rmtree(models)
+
+    # One train step at a time on a fixed batch.
+    cfg = ModelConfig()
+    images, actions, states = synthetic.generate_sequences(
+        BATCH, cfg.sequence_length, cfg.image_height, cfg.image_width,
+        seed=args.seed + 1)
+    batch = tuple(torch.as_tensor(a.swapaxes(0, 1).copy(), device="cuda")
+                  for a in (images, actions, states))
+    params = predictor.init_params(torch.Generator().manual_seed(args.seed),
+                                   cfg, device="cuda")
+    state = ts.create_train_state(params, ts.make_optimizer(1e-3))
+    step = ts.make_train_step(cfg)
+    seed = args.seed + 1
+    for it in range(2):                                   # warm-up
+        step(state, batch, it, sampling.generator(seed, it))
+    torch.cuda.synchronize()
+    reset_counters()
+    _, metrics = step(state, batch, 2, sampling.generator(seed, 2))
+    torch.cuda.synchronize()
+    check_counters("one train step", 1, 1)
+    if not bool(torch.isfinite(metrics["loss"])):
+        fail(f"non-finite training loss {float(metrics['loss'])}")
+    times = []
+    for it in range(3, 3 + args.timed_steps):
+        t0 = time.perf_counter()
+        step(state, batch, it, sampling.generator(seed, it))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = [x * 1e3 for x in times]
+    log(f"train b{BATCH}: ms/step {ms} (median {np.median(ms):.3f}); "
+        f"training frames/s {BATCH * PREDICTED / np.median(times):.1f} on "
+        f"{card}")
+    flops = 3 * rollout_flops(state.params, cfg, BATCH)
+    log(f"train b{BATCH}: convs, deconvs and dense layers about "
+        f"{flops / 1e9:.1f} GFLOP per step (3x the forward's), "
+        f"{flops / PEAK_F32_OPS_PER_S * 1e3:.2f} ms at the float32 peak")
+    it = 3 + args.timed_steps
+    profile_request(lambda: step(state, batch, it,
+                                 sampling.generator(seed, it)),
+                    (), None, what="train step")
+
+    # One step's gradients: kernels on vs off, card vs CPU.
+    keys = list(weights.flatten(state.params))
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False,
+                                    use_kernel_gates=False)
+    for it in (0, 6000):
+        n_gt = sampling.num_ground_truth(BATCH, cfg.scheduled_sampling_k, it)
+
+        def grads(c):
+            return ts.grads_and_metrics(state.params, c, batch, it,
+                                        sampling.generator(seed, it))
+
+        noise, _ = norms_of_difference(keys, grads(plain_cfg)[0],
+                                       grads(plain_cfg)[0])
+        worst = max(noise, key=noise.get)
+        log(f"iteration {it}: the plain ops run twice with cuDNN's default "
+            f"algorithms differ by up to {noise[worst]:.3e} ({worst})")
+        with deterministic_cudnn():
+            g_k, m_k = grads(cfg)
+            with plain_backward():
+                g_b, _ = grads(cfg)
+            g_p, m_p = grads(plain_cfg)
+            g_64 = grads_float64(ts, predictor, sampling, state.params, cfg,
+                                 batch, it, seed)
+        log(f"iteration {it} (n_gt {n_gt} of {BATCH}): loss kernels "
+            f"{float(m_k['loss']):.8f}, plain {float(m_p['loss']):.8f}")
+        check_grads(f"b{BATCH} train step at iteration {it}, backward "
+                    f"kernels vs their plain versions", keys, g_k, g_b,
+                    noise=noise)
+        check_grads(f"b{BATCH} train step at iteration {it}, kernels vs "
+                    f"plain ops", keys, g_k, g_p, exact=g_64)
+    two = tuple(a[:, :2].cpu() for a in batch)
+    cpu_params = predictor.map_params(
+        lambda p: p.detach().cpu().requires_grad_(), state.params)
+    with deterministic_cudnn():
+        g_d, _ = ts.grads_and_metrics(state.params, cfg,
+                                      tuple(a.to(batch[0].device)
+                                            for a in two), 6000,
+                                      sampling.generator(seed, 6000))
+    g_c, _ = ts.grads_and_metrics(cpu_params, cfg, two, 6000,
+                                  sampling.generator(seed, 6000))
+    g_64 = grads_float64(ts, predictor, sampling, cpu_params, cfg, two,
+                         6000, seed)
+    check_grads("train step at iteration 6000, 2 sequences, card vs CPU",
+                keys, g_d, g_c, exact=g_64)
+    return launches
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--train_steps", type=int, default=3)
+    ap.add_argument("--timed_steps", type=int, default=5)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "smoke"))
     args = ap.parse_args()
     args.run_name = "00000000-000000-CDNA-32"
     if args.requests < 1:
         fail("--requests must be at least 1")
+    if not 2 <= args.train_steps <= 3 or args.timed_steps < 5:
+        fail("--train_steps must be 2 or 3 (the second step closes the "
+             "one epoch) and --timed_steps at least 5")
 
     # 1. device
     if not torch.cuda.is_available():
@@ -412,15 +826,21 @@ def main() -> None:
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = [check_local_apply(gen), check_lstm_gates(gen)]
+    kernels = ([check_local_apply(gen), check_lstm_gates(gen)]
+               + check_local_apply_bwd(gen) + [check_lstm_gates_bwd(gen)])
 
-    # 4. the main path, served
+    # 4. the prediction path, served
     launches = serve_phase(args, card)
-    for k, n in zip(kernels, launches):
+    for k, n in zip(kernels[:2], launches[:2]):
         k["launches"] = n
 
     # 5. the predict CLI path
     predict_phase(args)
+
+    # 6. the training path
+    launches = train_phase(args, card)
+    for k, n in zip(kernels[2:], launches[2:]):
+        k["launches"] = n
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -10,9 +10,13 @@ changing its values, and the TPU backend probe.
 The two kernel switches take the place of the JAX `use_pallas` /
 `use_pallas_gates` fields: `use_kernel` routes the per-pixel tap
 application of the fused CDNA composite through the hand-written CUDA
-kernel (ops/kernels/local_apply.py), `use_kernel_gates` the ConvLSTM gate
-update (ops/kernels/lstm_gates.py). Both are on by default. On a CPU
-tensor a kernel wrapper computes its plain PyTorch version instead.
+kernels (ops/kernels/local_apply.py), `use_kernel_gates` the ConvLSTM gate
+update (ops/kernels/lstm_gates.py), forward and backward. Both are on by
+default. On a CPU tensor a kernel wrapper computes its plain PyTorch
+version instead.
+
+`TrainConfig` is the port's copy of the JAX package's training-loop
+configuration, without its TPU, mesh and multi-host fields.
 """
 
 from __future__ import annotations
@@ -137,3 +141,86 @@ class ModelConfig:
     @property
     def is_stp(self) -> bool:
         return self.model_type == "STP"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration: the reference CLI's 19 flags (field
+    meanings as in the JAX package's TrainConfig) and the extras this
+    slice of the port has. Left out are the TPU and multi-host fields
+    (`num_devices`, `spatial_parallel`, `pad_gate_convs`, `scan_unroll`,
+    `steps_per_call`, `use_pallas`, `checkpointer`,
+    `graceful_preemption`, `prefetch`, `lazy_load`)."""
+
+    data_dir: str = "data/processed/brain-robotics-data/push/push_train"
+    output_dir: str = "models"
+    event_log_dir: str = "models"
+    num_iterations: int = 100000
+    pretrained_model: str = ""
+    pretrained_state: str = ""
+    sequence_length: int = 10
+    context_frames: int = 2
+    use_state: bool = True
+    model_type: str = "CDNA"
+    num_masks: int = 10
+    schedsamp_k: float = 900.0
+    train_val_split: float = 0.95
+    batch_size: int = 32
+    learning_rate: float = 1e-3
+    validation_interval: int = 200
+    save_interval: int = 50
+    debug: bool = False
+
+    seed: int = 0
+    image_height: int = 64
+    image_width: int = 64
+    # 'auto' resolves to float32 (as does lstm_gate_compute='auto'):
+    # whether bf16 keeps the port within its tolerances on the card is
+    # not settled.
+    compute_dtype: str = "auto"
+    lstm_gate_compute: str = "auto"
+    # torch.utils.checkpoint around each timestep (memory for FLOPs).
+    remat: bool = False
+    use_kernel: bool = True
+    use_kernel_gates: bool = True
+    fused_cdna: bool = True
+    merge_output_convs: bool = True
+    # Exact-mean gradient accumulation over this many microbatches.
+    grad_accum: int = 1
+    # Abort + save an emergency checkpoint if the loss goes non-finite.
+    nan_guard: bool = True
+    # Ship image batches to the device as uint8, dequantize there.
+    u8_transfer: bool = True
+    reference_literal: bool = False
+    # Extra ModelConfig field overrides applied last in model_config().
+    model_overrides: Tuple[Tuple[str, object], ...] = ()
+    # Torch device of the run: "cuda" (default) or "cpu".
+    device: str = "cuda"
+
+    def model_config(self) -> ModelConfig:
+        dtype = ("float32" if self.compute_dtype == "auto"
+                 else self.compute_dtype)
+        gate = ("float32" if self.lstm_gate_compute == "auto"
+                else self.lstm_gate_compute)
+        quirks = (REFERENCE_LITERAL_OVERRIDES if self.reference_literal
+                  else {})
+        mc = ModelConfig(
+            model_type=self.model_type,
+            num_masks=self.num_masks,
+            use_state=self.use_state,
+            scheduled_sampling_k=self.schedsamp_k,
+            context_frames=self.context_frames,
+            sequence_length=self.sequence_length,
+            image_height=self.image_height,
+            image_width=self.image_width,
+            compute_dtype=dtype,
+            lstm_gate_compute=gate,
+            use_kernel=self.use_kernel,
+            use_kernel_gates=self.use_kernel_gates,
+            fused_cdna=self.fused_cdna,
+            merge_output_convs=self.merge_output_convs,
+            **quirks,
+        )
+        if self.model_overrides:
+            mc = dataclasses.replace(mc, **dict(self.model_overrides))
+        return mc

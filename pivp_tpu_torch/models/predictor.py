@@ -3,9 +3,9 @@
 Counterpart of `pivp_tpu/models/predictor.py`: the 7-stage trunk (convs,
 ConvLSTMs, flattened LayerNorms, state/action smear, skip connections),
 the CDNA head and the mask compositor, run as a Python loop over
-timesteps. This slice covers the feed-self rollout (`train=False`, the
-predict and serving path); scheduled-sampling training comes with the
-training slice, as do the DNA and STP heads.
+timesteps: the feed-self rollout (`train=False`, the predict and serving
+path) and the scheduled-sampling rollout of training (`train=True`). The
+DNA and STP heads come with a later slice.
 
 Parameters are a nested dict of tensors with the JAX package's keys and
 PyTorch's weight layouts (ops/layers.py); utils/weights.py maps them
@@ -14,15 +14,16 @@ from and to the JAX package's.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from pivp_tpu_torch.config import ModelConfig
 from pivp_tpu_torch.models import heads
-from pivp_tpu_torch.ops import convlstm, layers, metrics, transforms
+from pivp_tpu_torch.ops import convlstm, layers, metrics, sampling, transforms
 from pivp_tpu_torch.ops.kernels import local_apply
-from pivp_tpu_torch.utils.device import resolve_device
+from pivp_tpu_torch.utils.device import resolve_device, to_device
 
 Params = Dict[str, Any]
 
@@ -40,8 +41,9 @@ def hidden5_dim(cfg: ModelConfig) -> int:
 def _require_cdna(cfg: ModelConfig) -> None:
     if not cfg.is_cdna:
         raise NotImplementedError(
-            f"the {cfg.model_type} head is not ported yet; this slice of "
-            "the port covers the CDNA head")
+            f"the {cfg.model_type} head is not ported yet: it comes with "
+            "the DNA/STP head slice of the port, which so far covers the "
+            "CDNA head")
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
@@ -210,13 +212,20 @@ def forward_step(params: Params, cfg: ModelConfig, lstm_states,
 
 
 def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
-                   actions: torch.Tensor, states: torch.Tensor):
-    """The feed-self prediction loop: ground truth for the first
-    context_frames steps, then the model's own predictions.
+                   actions: torch.Tensor, states: torch.Tensor, *,
+                   n_ground_truth: int = 0,
+                   uniforms: Optional[torch.Tensor] = None,
+                   remat: bool = False):
+    """The prediction loop: ground truth for the first context_frames
+    steps, then the model's own predictions, or, with `uniforms`
+    ((T-1, B), one row per step), a scheduled-sampling mix of exactly
+    `n_ground_truth` ground-truth rows with the generated ones.
 
     images: (T, B, H, W, C) float in [0, 1] (or uint8), time-major;
-    actions/states: (T, B, 5). Returns (gen_images (T-1, B, H, W, C) in
-    the compute dtype, gen_states (T-1, B, S))."""
+    actions/states: (T, B, 5). `remat` recomputes each step's
+    activations in the backward (torch.utils.checkpoint). Returns
+    (gen_images (T-1, B, H, W, C) in the compute dtype, gen_states
+    (T-1, B, S))."""
     _require_cdna(cfg)
     batch = images.shape[1]
     dtype = cfg.dtype
@@ -229,16 +238,29 @@ def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
             lambda p: p.to(dtype) if p.dtype == torch.float32 else p,
             params)
 
+    step = forward_step
+    if remat:
+        def step(*args):
+            return torch.utils.checkpoint.checkpoint(
+                forward_step, *args, use_reentrant=False)
+
     lstm_states = init_lstm_states(cfg, batch, dtype, images.device)
     prev_gen = torch.zeros_like(images_c[0])
     current_state = states[0].to(sdt)
     gen_images, gen_states = [], []
     for t in range(images.shape[0] - 1):
-        prev_image = images_c[t] if t < cfg.context_frames else prev_gen
+        if t < cfg.context_frames:
+            prev_image = images_c[t]
+        elif uniforms is None:
+            prev_image = prev_gen
+        else:
+            prev_image = sampling.scheduled_sample(
+                uniforms[t], images_c[t], prev_gen, n_ground_truth,
+                detach_sampled=cfg.detach_sampled)
         state_action = torch.cat([actions[t].to(sdt), current_state],
                                  dim=-1).to(sdt)
-        lstm_states, out = forward_step(params, cfg, lstm_states,
-                                        prev_image, state_action)
+        lstm_states, out = step(params, cfg, lstm_states, prev_image,
+                                state_action)
         prev_gen, current_state = out.gen_image, out.gen_state
         gen_images.append(out.gen_image)
         gen_states.append(out.gen_state)
@@ -247,19 +269,38 @@ def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
 
 def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
             actions: torch.Tensor, states: torch.Tensor, *,
-            train: bool = False) -> Dict[str, torch.Tensor]:
+            train: bool = False, iter_num: int = 0,
+            generator: Optional[torch.Generator] = None,
+            remat: bool = False,
+            keys: Optional[Sequence[str]] = None
+            ) -> Dict[str, torch.Tensor]:
     """Run the full T-step prediction and compute losses and metrics.
 
-    `train=False` is the feed-self rollout (rollout_frames). Returns the
-    JAX package's dict: loss, psnr_all, gen_images (T-1, B, H, W, C),
-    gen_states, per-frame recon/psnr/state curves, psnr_per_image, ssim
-    and the (T-ctx, B) matrices."""
-    if train:
-        raise NotImplementedError(
-            "train=True (scheduled-sampling training) belongs to the "
-            "training slice of the port, which is not ported yet")
-    gen_images, gen_states = rollout_frames(params, cfg, images, actions,
-                                            states)
+    `train=False` is the feed-self rollout. `train=True` mixes ground
+    truth into the fed-back frames by scheduled sampling (unless
+    `cfg.scheduled_sampling_k == -1`): `iter_num` sets the count, and
+    the (T-1, B) uniforms are drawn once from `generator` (a CPU
+    generator; seed 0 when None) and moved to the device in one copy.
+
+    Returns the JAX package's dict: loss, psnr_all, gen_images
+    (T-1, B, H, W, C), gen_states, per-frame recon/psnr/state curves,
+    psnr_per_image, ssim and the (T-ctx, B) matrices, in float32 (float64
+    for a float64 model). `keys` limits it to those entries and computes
+    only what they need, as XLA drops what a jitted step does not
+    return."""
+    t_total, batch = images.shape[0], images.shape[1]
+    n_gt, uniforms = 0, None
+    if train and cfg.scheduled_sampling_k != -1:
+        n_gt = sampling.num_ground_truth(batch, cfg.scheduled_sampling_k,
+                                         iter_num)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        uniforms = to_device(torch.rand((t_total - 1, batch),
+                                        generator=generator), images.device)
+    gen_images, gen_states = rollout_frames(
+        params, cfg, images, actions, states, n_ground_truth=n_gt,
+        uniforms=uniforms, remat=remat)
+
     sdt = torch.promote_types(torch.float32, cfg.dtype)
     if not images.is_floating_point():
         images = images.to(torch.float32) / 255.0
@@ -268,35 +309,51 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
     pred_imgs = gen_images[ctx - 1:].to(sdt)
     true_states = states[ctx:].to(sdt)
     pred_states = gen_states[ctx - 1:]
-    n = images.shape[0] - ctx
+    n = t_total - ctx
 
     def per_frame(fn, a, b):
         return torch.stack([fn(a[i], b[i]) for i in range(n)])
 
-    recon_costs = per_frame(metrics.mean_squared_error, true_imgs,
-                            pred_imgs)
-    psnrs = per_frame(metrics.peak_signal_to_noise_ratio, true_imgs,
-                      pred_imgs)
-    state_costs = per_frame(metrics.mean_squared_error, true_states,
-                            pred_states) * cfg.state_cost_weight
-    ssim_tb = per_frame(metrics.ssim_per_image, true_imgs, pred_imgs)
-    return {
-        "loss": (recon_costs.sum() + state_costs.sum()) / n,
-        "psnr_all": psnrs.sum(),
-        "gen_images": gen_images,
-        "gen_states": gen_states,
+    def recon_costs():
+        return per_frame(metrics.mean_squared_error, true_imgs, pred_imgs)
+
+    def state_costs():
+        return per_frame(metrics.mean_squared_error, true_states,
+                         pred_states) * cfg.state_cost_weight
+
+    def psnrs():
+        return per_frame(metrics.peak_signal_to_noise_ratio, true_imgs,
+                         pred_imgs)
+
+    def ssim_tb():
+        return per_frame(metrics.ssim_per_image, true_imgs, pred_imgs)
+
+    entries = {
+        "loss": lambda: (out("recon_costs").sum()
+                         + out("state_costs").sum()) / n,
+        "psnr_all": lambda: out("psnrs").sum(),
+        "gen_images": lambda: gen_images,
+        "gen_states": lambda: gen_states,
         "recon_costs": recon_costs,
         "psnrs": psnrs,
         "state_costs": state_costs,
-        "psnr_per_image": per_frame(metrics.psnr_per_image, true_imgs,
-                                    pred_imgs).mean(),
-        "ssim": ssim_tb.mean(dim=1).mean(),
-        "recon_mse_tb": per_frame(metrics.per_image_mse, true_imgs,
-                                  pred_imgs),
-        "state_mse_tb": per_frame(metrics.per_image_mse, true_states,
-                                  pred_states),
+        "psnr_per_image": lambda: per_frame(
+            metrics.psnr_per_image, true_imgs, pred_imgs).mean(),
+        "ssim": lambda: out("ssim_tb").mean(dim=1).mean(),
+        "recon_mse_tb": lambda: per_frame(metrics.per_image_mse, true_imgs,
+                                          pred_imgs),
+        "state_mse_tb": lambda: per_frame(metrics.per_image_mse,
+                                          true_states, pred_states),
         "ssim_tb": ssim_tb,
     }
+    done: Dict[str, torch.Tensor] = {}
+
+    def out(key: str) -> torch.Tensor:
+        if key not in done:
+            done[key] = entries[key]()
+        return done[key]
+
+    return {k: out(k) for k in (entries if keys is None else keys)}
 
 
 @torch.inference_mode()

@@ -1,20 +1,24 @@
-"""Per-pixel K*K local kernel application: the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""Per-pixel K*K local kernel application: the CUDA kernels' wrappers,
+the autograd Function around them and their plain PyTorch versions.
 
-    y[b, h, w, c] = sum_t  W[b, h, w, t] * x_pad[b, h + dx_t, w + dy_t, c]
+    y[b, h, w, c]  = sum_t  W[b, h, w, t] * x_pad[b, h + dx_t, w + dy_t, c]
+    dW[b, h, w, t] = sum_c  g[b, h, w, c] * x_pad[b, h + dx_t, w + dy_t, c]
+    dX             = sum_t  flipped-shift_t(W_t * g)
     (t = dx*K + dy, pad = K//2, zero padding)
 
-Counterpart of `pivp_tpu/ops/pallas/local_apply.py` (forward only; the
-backward kernels come with the training slice). The kernel is
-`csrc/local_apply.cu`; its note says what bounds it and how it is laid
-out.
+Counterpart of `pivp_tpu/ops/pallas/local_apply.py`, forward and backward
+(its custom VJP becomes a `torch.autograd.Function`). The kernels are in
+`csrc/local_apply.cu`; its note says what bounds them and how they are
+laid out.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from pivp_tpu_torch.ops.kernels import build
 
@@ -29,6 +33,10 @@ def kernel_size(w: torch.Tensor) -> int:
     return k
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def local_kernel_apply_plain(x: torch.Tensor,
                              w: torch.Tensor) -> torch.Tensor:
     """Shifted stack plus einsum, as the JAX package's
@@ -39,43 +47,157 @@ def local_kernel_apply_plain(x: torch.Tensor,
     return torch.einsum("bkhwc,bhwk->bhwc", stack, w.to(stack.dtype))
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> int:
-    if x.ndim != 4 or w.ndim != 4 or x.shape[:3] != w.shape[:3]:
-        raise ValueError(f"expected x (B,H,W,C) and w (B,H,W,K*K), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+def local_kernel_apply_bwd_w_plain(x: torch.Tensor, g: torch.Tensor,
+                                   k: int) -> torch.Tensor:
+    """dW: each tap's shifted x dotted with g over the channels."""
+    from pivp_tpu_torch.ops import transforms
+
+    acc = _acc_dtype(x)
+    stack = transforms.shifted_stack(x.to(acc), k)
+    return torch.einsum("bkhwc,bhwc->bhwk", stack, g.to(acc)).to(x.dtype)
+
+
+def local_kernel_apply_bwd_x_plain(w: torch.Tensor,
+                                   g: torch.Tensor) -> torch.Tensor:
+    """dX: each tap's w_t * g, zero-padded and read at the flipped shift
+    (2p - dx, 2p - dy), summed over the taps."""
+    k = kernel_size(w)
+    pad = k // 2
+    acc = _acc_dtype(g)
+    _, h, wd, _ = g.shape
+    prod = w.to(acc)[..., :, None] * g.to(acc)[..., None, :]  # B,H,W,KK,C
+    padded = F.pad(prod, (0, 0, 0, 0, pad, pad, pad, pad))
+    dx = torch.zeros_like(g, dtype=acc)
+    for t in range(k * k):
+        fx, fy = 2 * pad - t // k, 2 * pad - t % k
+        dx = dx + padded[:, fx:fx + h, fy:fy + wd, t]
+    return dx.to(g.dtype)
+
+
+def local_kernel_apply_bwd_plain(x: torch.Tensor, w: torch.Tensor,
+                                 g: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) from the cotangent g of y, as the JAX package's
+    `_bwd_call` computes them."""
+    return (local_kernel_apply_bwd_x_plain(w, g),
+            local_kernel_apply_bwd_w_plain(x, g, kernel_size(w)))
+
+
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
+    """Two NHWC operands of one kernel: (B, H, W, *) each, one type
+    (float32 or bfloat16), one device, contiguous."""
+    if a.ndim != 4 or b.ndim != 4 or a.shape[:3] != b.shape[:3]:
+        raise ValueError(f"expected two (B,H,W,*) tensors of one frame, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"local_kernel_apply takes float32 or bfloat16 "
-                        f"x and w of one type, got {x.dtype}, {w.dtype}")
-    if w.device != x.device:
-        raise ValueError("x and w are on different devices")
-    if not (x.is_contiguous() and w.is_contiguous()):
+                        f"tensors of one type, got {a.dtype}, {b.dtype}")
+    if b.device != a.device:
+        raise ValueError("the operands are on different devices")
+    if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("local_kernel_apply takes contiguous NHWC tensors")
-    return kernel_size(w)
 
 
-def local_kernel_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """y[b,h,w,c] = sum_t W[b,h,w,t] * shift_t(x)[b,h,w,c].
+def _require_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, got {t.device}")
 
-    x: (B, H, W, C); w: (B, H, W, K*K) per-pixel kernels. On a CUDA
-    tensor this launches the CUDA kernel (and counts the launch in
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+            shape, k: int) -> None:
+    bsz, h, wd, c = shape
+    lib, _ = build.load()
+    err = getattr(lib, name)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, c, k,
+        int(a.dtype == torch.bfloat16), a.device.index or 0,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(err, name)
+
+
+def local_kernel_apply_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward pass, outside autograd. On a CUDA tensor this launches
+    the forward kernel (and counts the launch in
     `local_kernel_apply.launches`); on a CPU tensor it computes the plain
     version."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return local_kernel_apply_plain(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"local_kernel_apply runs on cuda or cpu, got "
-                         f"{x.device}")
-    k = _check(x, w)
-    b, h, wd, c = x.shape
+    _require_cuda(x, "local_kernel_apply")
+    _check(x, w)
     y = torch.empty_like(x)
-    lib, _ = build.load()
-    err = lib.pivp_local_apply_fwd(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, c, k,
-        int(x.dtype == torch.bfloat16), x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "pivp_local_apply_fwd")
+    _launch("pivp_local_apply_fwd", x, w, y, x.shape, kernel_size(w))
     local_kernel_apply.launches += 1
     return y
 
 
+def local_kernel_apply_bwd_w(x: torch.Tensor, g: torch.Tensor,
+                             k: int) -> torch.Tensor:
+    """dW (B, H, W, K*K) from x and the cotangent g (B, H, W, C). On a
+    CUDA tensor this launches the dW kernel (and counts the launch in
+    `local_kernel_apply_bwd_w.launches`); on a CPU tensor it computes the
+    plain version."""
+    if x.device.type == "cpu" and g.device.type == "cpu":
+        return local_kernel_apply_bwd_w_plain(x, g, k)
+    _require_cuda(x, "local_kernel_apply_bwd_w")
+    _check(x, g)
+    if g.shape != x.shape:
+        raise ValueError(f"cotangent {tuple(g.shape)} is not x's shape "
+                         f"{tuple(x.shape)}")
+    dw = x.new_empty(x.shape[:3] + (k * k,))
+    _launch("pivp_local_apply_bwd_w", x, g, dw, x.shape, k)
+    local_kernel_apply_bwd_w.launches += 1
+    return dw
+
+
+def local_kernel_apply_bwd_x(w: torch.Tensor, g: torch.Tensor
+                             ) -> torch.Tensor:
+    """dX (B, H, W, C) from w and the cotangent g (B, H, W, C). On a CUDA
+    tensor this launches the dX kernel (and counts the launch in
+    `local_kernel_apply_bwd_x.launches`); on a CPU tensor it computes the
+    plain version."""
+    if w.device.type == "cpu" and g.device.type == "cpu":
+        return local_kernel_apply_bwd_x_plain(w, g)
+    _require_cuda(w, "local_kernel_apply_bwd_x")
+    _check(w, g)
+    dx = torch.empty_like(g)
+    _launch("pivp_local_apply_bwd_x", w, g, dx, g.shape, kernel_size(w))
+    local_kernel_apply_bwd_x.launches += 1
+    return dx
+
+
+class _LocalKernelApply(torch.autograd.Function):
+    """The JAX custom VJP: saves (x, w); the backward computes both dx
+    and dw, as the JAX `_bwd_call` does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return local_kernel_apply_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        return (local_kernel_apply_bwd_x(w, g),
+                local_kernel_apply_bwd_w(x, g, kernel_size(w)))
+
+
+def local_kernel_apply(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[b,h,w,c] = sum_t W[b,h,w,t] * shift_t(x)[b,h,w,c], differentiable
+    in x and w.
+
+    x: (B, H, W, C); w: (B, H, W, K*K) per-pixel kernels. On CUDA tensors
+    the forward launches the forward kernel and the backward the dX and
+    dW kernels (counted in `local_kernel_apply.launches`,
+    `local_kernel_apply_bwd_x.launches` and
+    `local_kernel_apply_bwd_w.launches`); on CPU tensors they compute the
+    plain versions."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _LocalKernelApply.apply(x, w)
+    # Nothing to differentiate (inference): the same forward, without the
+    # autograd Function's per-call cost.
+    return local_kernel_apply_fwd(x, w)
+
+
 local_kernel_apply.launches = 0
+local_kernel_apply_bwd_w.launches = 0
+local_kernel_apply_bwd_x.launches = 0

@@ -1,16 +1,20 @@
-"""Flat-npz save/load of the port's parameters.
+"""Flat-npz save/load of the port's parameters and optimizer state, and
+the run directory.
 
-Counterpart of the npz half of `pivp_tpu/utils/checkpoint.py`: the same
-'/'-joined keys, and the files hold the JAX package's weight layouts
-(utils/weights.py maps them), so a checkpoint written by either package
-loads into the other. The Chainer-layout converter comes in a later
-slice.
+Counterpart of the npz and run-directory parts of
+`pivp_tpu/utils/checkpoint.py`: the same '/'-joined keys, and the files
+hold the JAX package's weight layouts (utils/weights.py maps them), so a
+`training-<tag>.npz` or `state-<tag>.npz` written by either package
+loads into the other. A run directory `<date>-<TYPE>-<batch>/` holds
+those files, the metric-curve `.npy` files and a `version` file stamping
+the git commit. The Chainer-layout converter comes in a later slice.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+import subprocess
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -56,3 +60,30 @@ def npz_keys(path: str):
     """List checkpoint keys."""
     with np.load(path) as data:
         return sorted(data.keys())
+
+
+def git_version() -> Optional[str]:
+    """Branch + commit provenance stamp, or None outside a git checkout
+    (or without git)."""
+    try:
+        def run(args):
+            return subprocess.run(["git"] + args, capture_output=True,
+                                  text=True, check=True,
+                                  timeout=30).stdout.strip()
+        return run(["rev-parse", "--abbrev-ref", "HEAD"]) + "\n" + \
+            run(["rev-parse", "HEAD"])
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def prepare_run_dir(output_dir: str, run_name: str) -> str:
+    """Create `output_dir/run_name` (with its `version` stamp) if it does
+    not exist yet; return its path."""
+    save_dir = os.path.join(output_dir, run_name)
+    if not os.path.exists(save_dir):
+        os.makedirs(save_dir, exist_ok=True)
+        version = git_version()
+        if version is not None:
+            with open(os.path.join(save_dir, "version"), "w") as f:
+                f.write(version + "\n")
+    return save_dir

@@ -25,3 +25,13 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """Copy a CPU tensor to `device` without waiting: to a GPU through
+    pinned memory with a non-blocking copy (a copy from pageable memory
+    would wait for the stream), to the CPU as it is."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

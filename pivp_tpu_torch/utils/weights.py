@@ -11,7 +11,10 @@ weight layouts:
   * LayerNorm scale/bias and all biases keep their shape.
 
 With these mappings an npz written by either package loads into the
-other (utils/checkpoint.py writes the JAX layout).
+other (utils/checkpoint.py writes the JAX layout). The optimizer state
+(`count`, `mu/<param key>`, `nu/<param key>`, the JAX ChainerAdamState)
+crosses the same way: each moment takes its parameter's layout, and
+`count` passes unchanged.
 """
 
 from __future__ import annotations
@@ -26,7 +29,16 @@ import torch
 DECONV_LAYERS = frozenset({"enc4", "enc5", "enc6", "masks", "head/enc7"})
 
 
+# Prefixes of the optimizer's moment trees: a moment has the layout of
+# the parameter its key names after the prefix.
+_MOMENT_PREFIXES = ("mu/", "nu/")
+
+
 def _layer(key: str) -> str:
+    for prefix in _MOMENT_PREFIXES:
+        if key.startswith(prefix):
+            key = key[len(prefix):]
+            break
     return key.rsplit("/", 1)[0]
 
 
@@ -86,7 +98,9 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 def to_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """The port's nested parameter dict -> the JAX package's flat
     '/'-keyed numpy arrays."""
+    # np.require keeps a 0-d leaf (the optimizer's count) 0-d, where
+    # np.ascontiguousarray would make it 1-d.
     return {
-        k: np.ascontiguousarray(
-            _port_to_jax(k, v.detach().to("cpu").numpy()))
+        k: np.require(_port_to_jax(k, v.detach().to("cpu").numpy()),
+                      requirements="C")
         for k, v in flatten(params).items()}

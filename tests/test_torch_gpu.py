@@ -101,3 +101,93 @@ def test_kernel_rollout_matches_plain_rollout(cuda):
     out_p = predictor.predict(params, plain, *data)
     _close(out_k["gen_images"], out_p["gen_images"], 1e-4)
     assert float((out_k["psnrs"] - out_p["psnrs"]).abs().max()) <= 0.01
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((2, 16, 16, 3), 5), ((2, 16, 16, 3), 3), ((1, 9, 13, 1), 5),
+    ((1, 20, 7, 8), 7), ((1, 300, 17, 5), 5)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_local_apply_bwd_kernels_match_plain(cuda, shape, k, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = torch.rand(shape[:3] + (k * k,), generator=g, device=cuda)
+    w = (w / w.sum(-1, keepdim=True)).to(dtype)
+    before = (la.local_kernel_apply_bwd_w.launches,
+              la.local_kernel_apply_bwd_x.launches)
+    dw = la.local_kernel_apply_bwd_w(x, gy, k)
+    dx = la.local_kernel_apply_bwd_x(w, gy)
+    assert (la.local_kernel_apply_bwd_w.launches,
+            la.local_kernel_apply_bwd_x.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want_dx, want_dw = la.local_kernel_apply_bwd_plain(x, w, gy)
+    _close(dw, want_dw, tol)
+    _close(dx, want_dx, tol)
+
+
+def test_local_apply_autograd_launches_both_backward_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 8, 8, 3), generator=g, device=cuda,
+                    requires_grad=True)
+    w = torch.rand((2, 8, 8, 25), generator=g, device=cuda,
+                   requires_grad=True)
+    before = (la.local_kernel_apply_bwd_w.launches,
+              la.local_kernel_apply_bwd_x.launches)
+    la.local_kernel_apply(x, w).square().sum().backward()
+    assert (la.local_kernel_apply_bwd_w.launches,
+            la.local_kernel_apply_bwd_x.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    xc, wc = (t.detach().cpu().requires_grad_() for t in (x, w))
+    la.local_kernel_apply(xc, wc).square().sum().backward()
+    _close(x.grad.cpu(), xc.grad, 1e-5)
+    _close(w.grad.cpu(), wc.grad, 1e-5)
+
+
+@pytest.mark.parametrize("C", [32, 64, 128, 3])
+@pytest.mark.parametrize("forget_bias", [0.0, 1.0, 5.0])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("missing", [None, "c", "h"])
+def test_lstm_gates_bwd_kernel_matches_plain(cuda, C, forget_bias, dtype,
+                                             tol, missing):
+    g = torch.Generator(device=cuda).manual_seed(C)
+    gates = (torch.randn((2, 8, 8, 4 * C), generator=g, device=cuda)
+             * 1.5).to(dtype)
+    c, g_c, g_h = (torch.randn((2, 8, 8, C), generator=g,
+                               device=cuda).to(dtype) for _ in range(3))
+    g_c = None if missing == "c" else g_c
+    g_h = None if missing == "h" else g_h
+    before = lg.fused_lstm_gates_bwd.launches
+    got = lg.fused_lstm_gates_bwd(gates, c, g_c, g_h, forget_bias)
+    assert lg.fused_lstm_gates_bwd.launches == before + 1
+    want = lg.fused_lstm_gates_bwd_plain(gates, c, g_c, g_h, forget_bias)
+    _close(got[0], want[0], tol)
+    _close(got[1], want[1], tol)
+
+
+def test_train_step_grads_with_kernels_match_plain(cuda):
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg = ModelConfig(image_height=32, image_width=32, sequence_length=5)
+    params = predictor.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device=cuda)
+    state = ts.create_train_state(params, ts.make_optimizer(1e-3))
+    r = np.random.RandomState(0)
+    batch = [torch.as_tensor(a, device=cuda) for a in (
+        r.rand(5, 4, 32, 32, 3).astype(np.float32),
+        r.randn(5, 4, 5).astype(np.float32),
+        r.randn(5, 4, 5).astype(np.float32))]
+    plain = dataclasses.replace(cfg, use_kernel=False, use_kernel_gates=False)
+    for it in (0, 6000):
+        la.local_kernel_apply_bwd_x.launches = 0
+        lg.fused_lstm_gates_bwd.launches = 0
+        got, _ = ts.grads_and_metrics(state.params, cfg, batch, it,
+                                      sampling.generator(0, it))
+        assert la.local_kernel_apply_bwd_x.launches == 4
+        assert lg.fused_lstm_gates_bwd.launches == 28
+        want, _ = ts.grads_and_metrics(state.params, plain, batch, it,
+                                       sampling.generator(0, it))
+        for a, b in zip(got, want):
+            assert float((a - b).norm() / (b.norm() + 1e-30)) <= 1e-4

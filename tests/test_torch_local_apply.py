@@ -4,6 +4,7 @@ interpret mode and its shifted-stack reference. The CUDA kernel itself
 is held against the plain version on the card (test_torch_gpu.py,
 chip_smoke.py)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,3 +56,61 @@ def test_rejects_meta_device():
     x = torch.empty(1, 4, 4, 3, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         tla.local_kernel_apply(x, torch.empty(1, 4, 4, 25, device="meta"))
+
+
+SHAPES = [
+    ((2, 8, 8, 3), 5),
+    ((2, 8, 8, 3), 3),
+    ((1, 12, 10, 5), 5),          # non-square frame, C not a multiple of 4
+    ((1, 136, 8, 3), 5),          # H > 128: the JAX tiled layout's regime
+]
+
+
+@pytest.mark.parametrize("shape,k", SHAPES)
+def test_bwd_plain_matches_pallas_interpret(shape, k):
+    x, w = _data(*shape, k)
+    g = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    want_dx, want_dw = jla._bwd_call(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(g), True)
+    got_dx, got_dw = tla.local_kernel_apply_bwd_plain(
+        torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(g))
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_dw.numpy(), np.asarray(want_dw),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,k", SHAPES)
+def test_autograd_matches_jax_grad_of_pallas_vjp(shape, k):
+    x, w = _data(*shape, k)
+    g = np.random.RandomState(2).randn(*shape).astype(np.float32)
+    want = jax.grad(
+        lambda a, b: jnp.sum(jla.local_kernel_apply(a, b, True) * g),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(w, requires_grad=True)
+    (tla.local_kernel_apply(xt, wt) * torch.as_tensor(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want[0]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,k", [((1, 5, 4, 2), 3), ((2, 4, 6, 1), 5)])
+def test_gradcheck_float64(shape, k):
+    r = np.random.RandomState(3)
+    x = torch.tensor(r.randn(*shape), requires_grad=True)
+    w = torch.tensor(r.randn(*shape[:3], k * k), requires_grad=True)
+    assert torch.autograd.gradcheck(tla.local_kernel_apply, (x, w),
+                                    eps=1e-6, atol=1e-8, rtol=1e-6)
+
+
+def test_cpu_backward_counts_no_launch():
+    x, w = (torch.tensor(a, requires_grad=True)
+            for a in _data(1, 6, 6, 3, 5))
+    counts = (tla.local_kernel_apply_bwd_w.launches,
+              tla.local_kernel_apply_bwd_x.launches)
+    tla.local_kernel_apply(x, w).sum().backward()
+    assert (tla.local_kernel_apply_bwd_w.launches,
+            tla.local_kernel_apply_bwd_x.launches) == counts
+    assert x.grad is not None and w.grad is not None

@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from pivp_tpu_torch.config import ModelConfig
+from click.testing import CliRunner
+
+from pivp_tpu_torch.config import ModelConfig, TrainConfig
 from pivp_tpu_torch.inference import predict
 from pivp_tpu_torch.models import predictor
 from pivp_tpu_torch.ops.kernels import build
+from pivp_tpu_torch.training import loop, train_cli
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +43,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 31
 
 
 def test_importing_kernels_builds_nothing():
@@ -65,6 +68,17 @@ def test_entry_points_raise_without_gpu(tmp_path):
                            True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         predictor.init_params(torch.Generator(), cfg)
+    arrays = tuple(np.zeros((2, 3) + s, np.float32)
+                   for s in ((16, 16, 3), (5,), (5,)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.run_training(TrainConfig(output_dir=str(tmp_path)),
+                          arrays=arrays)
+    result = CliRunner().invoke(train_cli.main, [
+        "--synthetic", "2", "--num_iterations", "1",
+        "--output_dir", str(tmp_path)])
+    assert isinstance(result.exception, RuntimeError)
+    assert "no CUDA device" in str(result.exception)
+    assert not os.listdir(tmp_path)
 
 
 def test_heads_of_later_slices_raise():

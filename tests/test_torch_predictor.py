@@ -113,8 +113,11 @@ def test_unfused_cdna_matches_fused(setup):
 
 
 def test_train_rollout_names_training_slice(setup):
+    # The training rollout is ported for the CDNA head; the DNA head's
+    # raises, naming the later slice that brings it.
     _, params, data = setup
     params = weights.from_jax_params(flatten_pytree(params))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tpred.rollout(params, tconfig.ModelConfig(**SMALL),
-                      *[torch.as_tensor(a) for a in data], train=True)
+    cfg = tconfig.ModelConfig(**dict(SMALL, model_type="DNA", num_masks=1))
+    with pytest.raises(NotImplementedError, match="DNA/STP head slice"):
+        tpred.rollout(params, cfg, *[torch.as_tensor(a) for a in data],
+                      train=True)
