@@ -12,7 +12,8 @@ phases:
   2. build    compiles every CUDA kernel from pivp_tpu_torch/csrc
   3. kernels  each kernel, forward and backward, against its plain
               PyTorch version on the card, at the main paths' shapes,
-              with times and bounds
+              with times (warm and cold, below) and bounds, and a device
+              copy of the local-apply kernels' bytes as a yardstick
   4. serve    seeded params -> save_npz -> load_model -> make_serve_fn,
               --requests requests of batch 32; the launch counters must
               show every forward kernel launched on that path; the
@@ -39,8 +40,14 @@ Any failure exits non-zero. The last lines are a `kernels` JSON line
 kernels' the train phase's), the card's name and power limit, and
 `{"ok": true, "device": ...}`.
 
+Each kernel is timed twice at the main path's shapes: warm (`ms`: 200
+calls on the same inputs, which stay in the 50 MB L2) and cold
+(`cold_ms`: the calls go round input sets larger than twice the L2, each
+writing its own output). The cold time is the one to hold against the
+bound, which counts every byte from and to device memory.
+
 Usage: python3 chip_smoke.py [--seed 0] [--requests 3] [--train_steps 3]
-                             [--out DIR]
+                             [--out DIR] [--kernels_only]
 """
 
 from __future__ import annotations
@@ -107,36 +114,66 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _events_ms(run, iters: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def cuda_ms(fn, iters: int = 200, warmup: int = 20,
             graph: bool = False) -> float:
     """Mean time of one call of `fn`, from CUDA events around `iters`
     back-to-back calls after `warmup` calls. Called from Python, a short
     kernel is paced by the host's launch overhead; with `graph=True` the
     `iters` calls are captured in one CUDA graph and replayed, which
-    leaves the device time alone."""
+    leaves the device time alone. Every call reads the same inputs, so
+    whatever fits in the L2 stays there (warm)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    run = fn
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+    if not graph:
+        def run():
             for _ in range(iters):
                 fn()
-        g.replay()
-        torch.cuda.synchronize()
-        run = g.replay
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    if graph:
-        run()
-    else:
+        return _events_ms(run, iters)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
         for _ in range(iters):
-            run()
-    end.record()
+            fn()
+    g.replay()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return _events_ms(g.replay, iters)
+
+
+def cold_ms(fn, make_inputs, input_bytes: int, iters: int = 200) -> float:
+    """Mean device time of one call of `fn(*inputs)` with a cold L2: the
+    `iters` calls, captured in one CUDA graph, go round N input sets
+    from `make_inputs()` whose inputs together exceed twice the L2, and
+    every call writes an output of its own (all are held until the
+    timing ends). So a set's lines are evicted before it comes back, and
+    each call reads its inputs from device memory and writes its outputs
+    back to it, as the bound assumes."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    n = min(iters, 2 * l2 // input_bytes + 1)
+    sets = [make_inputs() for _ in range(n)]
+    for s in sets[:3]:                                   # warm-up
+        fn(*s)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            outs.append(fn(*sets[i % n]))
+    g.replay()
+    torch.cuda.synchronize()
+    ms = _events_ms(g.replay, iters)
+    del g, outs, sets
+    torch.cuda.empty_cache()
+    return ms
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -153,6 +190,23 @@ def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
     """|a - b| <= tol + tol * |b| everywhere (the JAX package's kernel
     tests use the same rtol = atol form)."""
     return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def la_inputs(shape, k: int, dtype, gen: torch.Generator) -> tuple:
+    """x in [0, 1), a cotangent g and normalised per-pixel kernels w."""
+    x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    w = torch.rand(shape[:3] + (k * k,), generator=gen, device="cuda")
+    return x, g, (w / w.sum(-1, keepdim=True)).to(dtype)
+
+
+def time_line(what: str, ms: float, cold: float, plain_ms: float,
+              bms: float, by: str, call_ms: float) -> str:
+    return (f"{what}, device time per call (CUDA graph): kernel "
+            f"{ms * 1e3:.2f} us warm, {cold * 1e3:.2f} us cold "
+            f"({100 * bms / cold:.1f}% of bound), plain "
+            f"{plain_ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}); "
+            f"kernel called from Python {call_ms * 1e3:.2f} us per call")
 
 
 def check_local_apply(gen: torch.Generator) -> dict:
@@ -180,34 +234,53 @@ def check_local_apply(gen: torch.Generator) -> dict:
         if main_err is None:
             main_err = err
             ms = cuda_ms(lambda: la.local_kernel_apply(x, w), graph=True)
+            b, h, wd, c = shape
+            cold = cold_ms(la.local_kernel_apply,
+                           lambda: la_inputs(shape, k, dtype, gen)[::2],
+                           (b * h * wd * c + b * h * wd * k * k) * 4)
             plain_ms = cuda_ms(lambda: la.local_kernel_apply_plain(x, w),
                                graph=True)
             call_ms = cuda_ms(lambda: la.local_kernel_apply(x, w))
-            b, h, wd, c = shape
             nbytes = (2 * b * h * wd * c + b * h * wd * k * k) * 4
             bms, by = bound_ms(nbytes, 2 * k * k * c * b * h * wd)
-    log(f"local_apply {LOCAL_APPLY_SHAPE}x25 f32, device time per call "
-        f"(CUDA graph): kernel {ms * 1e3:.2f} us, plain "
-        f"{plain_ms * 1e3:.2f} us, bound {bms * 1e3:.2f} us ({by}); "
-        f"kernel called from Python {call_ms * 1e3:.2f} us per call")
+    log(time_line(f"local_apply {LOCAL_APPLY_SHAPE}x25 f32", ms, cold,
+                  plain_ms, bms, by, call_ms))
+    # A yardstick for the three local-apply kernels, which each move
+    # `nbytes`: a device copy that reads half of them and writes the
+    # other half, timed the same two ways.
+    half = torch.empty(nbytes // 8, device="cuda")
+    copy_ms = cuda_ms(half.clone, graph=True)
+    copy_cold = cold_ms(torch.clone, lambda: (torch.rand_like(half),),
+                        nbytes // 2)
+    log(f"device copy moving the same {nbytes / 1e6:.1f} MB: "
+        f"{copy_ms * 1e3:.2f} us warm, {copy_cold * 1e3:.2f} us cold")
     return {"name": "local_kernel_apply", "route": "cuda",
             "source": "pivp_tpu_torch/csrc/local_apply.cu",
             "replaces": "pivp_tpu/ops/pallas/local_apply.py:106",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "max_abs_err": main_err, "ms": ms, "cold_ms": cold,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+
+
+def gate_inputs(shape, dtype, gen: torch.Generator, n: int) -> tuple:
+    """Gate pre-activations (B, H, W, 4C), then n (B, H, W, C) tensors
+    (the carry c, then the cotangents of new_c and new_h)."""
+    gates = torch.randn(shape[:3] + (4 * shape[3],), generator=gen,
+                        device="cuda") * 1.5
+    return (gates.to(dtype),) + tuple(
+        torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        for _ in range(n))
 
 
 def check_lstm_gates(gen: torch.Generator) -> dict:
     from pivp_tpu_torch.ops.kernels import lstm_gates as lg
 
     worst = 0.0
-    step_ms = step_plain_ms = step_call_ms = step_bytes = step_ops = 0.0
+    step_ms = step_cold = step_plain_ms = step_call_ms = 0.0
+    step_bytes = step_ops = 0.0
     for n_cells, h, w, c in GATE_CELLS:
         for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
-            gates = (torch.randn((BATCH, h, w, 4 * c), generator=gen,
-                                 device="cuda") * 1.5).to(dtype)
-            cc = torch.randn((BATCH, h, w, c), generator=gen,
-                             device="cuda").to(dtype)
+            gates, cc = gate_inputs((BATCH, h, w, c), dtype, gen, 1)
             for fb in (1.0, 0.0):
                 got = lg.fused_lstm_gates(gates, cc, fb)
                 want = lg.fused_lstm_gates_plain(gates, cc, fb)
@@ -222,29 +295,32 @@ def check_lstm_gates(gen: torch.Generator) -> dict:
                 if dtype == torch.float32:
                     worst = max(worst, err)
             if dtype == torch.float32:
+                elems = BATCH * h * w * c
                 step_ms += n_cells * cuda_ms(
                     lambda: lg.fused_lstm_gates(gates, cc, 1.0), graph=True)
+                step_cold += n_cells * cold_ms(
+                    lambda gs, cs: lg.fused_lstm_gates(gs, cs, 1.0),
+                    lambda: gate_inputs((BATCH, h, w, c), dtype, gen, 1),
+                    5 * elems * 4)
                 step_plain_ms += n_cells * cuda_ms(
                     lambda: lg.fused_lstm_gates_plain(gates, cc, 1.0),
                     graph=True)
                 step_call_ms += n_cells * cuda_ms(
                     lambda: lg.fused_lstm_gates(gates, cc, 1.0))
-                elems = BATCH * h * w * c
                 step_bytes += n_cells * 7 * elems * 4
                 # Per element: 3 sigmoids (negate, exp, add, divide), 2
                 # tanh, the forget-bias add and 4 multiply/adds.
                 step_ops += n_cells * 19 * elems
     bms, by = bound_ms(step_bytes, step_ops)
-    log(f"lstm_gates, the {GATE_LAUNCHES_PER_STEP} cells of one timestep "
-        f"at b{BATCH} f32, device time (CUDA graph): kernel "
-        f"{step_ms * 1e3:.2f} us, plain {step_plain_ms * 1e3:.2f} us, bound "
-        f"{bms * 1e3:.2f} us ({by}); kernel called from Python "
-        f"{step_call_ms * 1e3:.2f} us")
+    log(time_line(f"lstm_gates, the {GATE_LAUNCHES_PER_STEP} cells of one "
+                  f"timestep at b{BATCH} f32 (sums)", step_ms, step_cold,
+                  step_plain_ms, bms, by, step_call_ms))
     return {"name": "fused_lstm_gates", "route": "cuda",
             "source": "pivp_tpu_torch/csrc/lstm_gates.cu",
             "replaces": "pivp_tpu/ops/pallas/lstm_gates.py:107",
-            "max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "max_abs_err": worst, "ms": step_ms, "cold_ms": step_cold,
+            "plain_ms": step_plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 def check_local_apply_bwd(gen: torch.Generator) -> list:
@@ -258,10 +334,7 @@ def check_local_apply_bwd(gen: torch.Generator) -> list:
     ]
     rows = {}
     for shape, k, dtype, tol in cases:
-        x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
-        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        w = torch.rand(shape[:3] + (k * k,), generator=gen, device="cuda")
-        w = (w / w.sum(-1, keepdim=True)).to(dtype)
+        x, g, w = la_inputs(shape, k, dtype, gen)
         got_dw = la.local_kernel_apply_bwd_w(x, g, k)
         got_dx = la.local_kernel_apply_bwd_x(w, g)
         want_dx, want_dw = la.local_kernel_apply_bwd_plain(x, w, g)
@@ -280,49 +353,46 @@ def check_local_apply_bwd(gen: torch.Generator) -> list:
                 if name == "dW":
                     kern = lambda: la.local_kernel_apply_bwd_w(x, g, k)  # noqa: E731
                     plain = lambda: la.local_kernel_apply_bwd_w_plain(x, g, k)  # noqa: E731
+                    cold = cold_ms(
+                        lambda xs, gs: la.local_kernel_apply_bwd_w(xs, gs, k),
+                        lambda: la_inputs(shape, k, dtype, gen)[:2],
+                        2 * b * h * wd * c * 4)
                 else:
                     kern = lambda: la.local_kernel_apply_bwd_x(w, g)  # noqa: E731
                     plain = lambda: la.local_kernel_apply_bwd_x_plain(w, g)  # noqa: E731
+                    cold = cold_ms(
+                        la.local_kernel_apply_bwd_x,
+                        lambda: la_inputs(shape, k, dtype, gen)[:0:-1],
+                        (b * h * wd * c + b * h * wd * k * k) * 4)
                 ms = cuda_ms(kern, graph=True)
                 plain_ms = cuda_ms(plain, graph=True)
                 call_ms = cuda_ms(kern)
                 bms, by = bound_ms(nbytes, 2 * k * k * c * b * h * wd)
-                log(f"local_apply {name} {shape}x{k * k} f32, device time "
-                    f"per call (CUDA graph): kernel {ms * 1e3:.2f} us, "
-                    f"plain {plain_ms * 1e3:.2f} us, bound "
-                    f"{bms * 1e3:.2f} us ({by}); kernel called from "
-                    f"Python {call_ms * 1e3:.2f} us per call")
-                rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                  bms=bms, by=by)
+                log(time_line(f"local_apply {name} {shape}x{k * k} f32", ms,
+                              cold, plain_ms, bms, by, call_ms))
+                rows[name] = dict(err=err, ms=ms, cold_ms=cold,
+                                  plain_ms=plain_ms, bms=bms, by=by)
     return [
-        {"name": "local_kernel_apply_bwd_w", "route": "cuda",
+        {"name": f"local_kernel_apply_bwd_{name[1].lower()}", "route": "cuda",
          "source": "pivp_tpu_torch/csrc/local_apply.cu",
-         "replaces": "pivp_tpu/ops/pallas/local_apply.py:247",
-         "max_abs_err": rows["dW"]["err"], "ms": rows["dW"]["ms"],
-         "plain_ms": rows["dW"]["plain_ms"], "bound_ms": rows["dW"]["bms"],
-         "bound_by": rows["dW"]["by"], "library_ms": None},
-        {"name": "local_kernel_apply_bwd_x", "route": "cuda",
-         "source": "pivp_tpu_torch/csrc/local_apply.cu",
-         "replaces": "pivp_tpu/ops/pallas/local_apply.py:293",
-         "max_abs_err": rows["dX"]["err"], "ms": rows["dX"]["ms"],
-         "plain_ms": rows["dX"]["plain_ms"], "bound_ms": rows["dX"]["bms"],
-         "bound_by": rows["dX"]["by"], "library_ms": None},
-    ]
+         "replaces": f"pivp_tpu/ops/pallas/local_apply.py:{line}",
+         "max_abs_err": rows[name]["err"], "ms": rows[name]["ms"],
+         "cold_ms": rows[name]["cold_ms"],
+         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bms"],
+         "bound_by": rows[name]["by"], "library_ms": None}
+        for name, line in (("dW", 247), ("dX", 293))]
 
 
 def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
     from pivp_tpu_torch.ops.kernels import lstm_gates as lg
 
     worst = 0.0
-    step_ms = step_plain_ms = step_call_ms = step_bytes = step_ops = 0.0
+    step_ms = step_cold = step_plain_ms = step_call_ms = 0.0
+    step_bytes = step_ops = 0.0
     for n_cells, h, w, c in GATE_CELLS:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             shape = (BATCH, h, w, c)
-            gates = (torch.randn(shape[:3] + (4 * c,), generator=gen,
-                                 device="cuda") * 1.5).to(dtype)
-            cc, g_c, g_h = (torch.randn(shape, generator=gen,
-                                        device="cuda").to(dtype)
-                            for _ in range(3))
+            gates, cc, g_c, g_h = gate_inputs(shape, dtype, gen, 3)
             # Autograd passes None for the unused new_c of the last step.
             for gc in (g_c, None):
                 got = lg.fused_lstm_gates_bwd(gates, cc, gc, g_h, 1.0)
@@ -338,32 +408,35 @@ def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
                 if dtype == torch.float32:
                     worst = max(worst, err)
             if dtype == torch.float32:
+                elems = BATCH * h * w * c
                 step_ms += n_cells * cuda_ms(
                     lambda: lg.fused_lstm_gates_bwd(gates, cc, g_c, g_h, 1.0),
                     graph=True)
+                step_cold += n_cells * cold_ms(
+                    lambda *a: lg.fused_lstm_gates_bwd(*a, 1.0),
+                    lambda: gate_inputs(shape, dtype, gen, 3),
+                    7 * elems * 4)
                 step_plain_ms += n_cells * cuda_ms(
                     lambda: lg.fused_lstm_gates_bwd_plain(gates, cc, g_c,
                                                           g_h, 1.0),
                     graph=True)
                 step_call_ms += n_cells * cuda_ms(
                     lambda: lg.fused_lstm_gates_bwd(gates, cc, g_c, g_h, 1.0))
-                elems = BATCH * h * w * c
                 # Reads gates (4), c, g_c, g_h; writes dgates (4) and dc.
                 step_bytes += n_cells * 12 * elems * 4
                 # Per element: the forward's 19 operations again, then
                 # dct (4), the four gate derivatives (12) and dc (1).
                 step_ops += n_cells * 36 * elems
     bms, by = bound_ms(step_bytes, step_ops)
-    log(f"lstm_gates bwd, the {GATE_LAUNCHES_PER_STEP} cells of one timestep "
-        f"at b{BATCH} f32, device time (CUDA graph): kernel "
-        f"{step_ms * 1e3:.2f} us, plain {step_plain_ms * 1e3:.2f} us, bound "
-        f"{bms * 1e3:.2f} us ({by}); kernel called from Python "
-        f"{step_call_ms * 1e3:.2f} us")
+    log(time_line(f"lstm_gates bwd, the {GATE_LAUNCHES_PER_STEP} cells of one "
+                  f"timestep at b{BATCH} f32 (sums)", step_ms, step_cold,
+                  step_plain_ms, bms, by, step_call_ms))
     return {"name": "fused_lstm_gates_bwd", "route": "cuda",
             "source": "pivp_tpu_torch/csrc/lstm_gates.cu",
             "replaces": "pivp_tpu/ops/pallas/lstm_gates.py:140",
-            "max_abs_err": worst, "ms": step_ms, "plain_ms": step_plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "max_abs_err": worst, "ms": step_ms, "cold_ms": step_cold,
+            "plain_ms": step_plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 def profile_request(serve, request, trace_path, what="request") -> None:
@@ -799,6 +872,8 @@ def main() -> None:
     ap.add_argument("--train_steps", type=int, default=3)
     ap.add_argument("--timed_steps", type=int, default=5)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "smoke"))
+    ap.add_argument("--kernels_only", action="store_true",
+                    help="stop after phase 3 (no JSON lines are printed)")
     args = ap.parse_args()
     args.run_name = "00000000-000000-CDNA-32"
     if args.requests < 1:
@@ -828,6 +903,9 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = ([check_local_apply(gen), check_lstm_gates(gen)]
                + check_local_apply_bwd(gen) + [check_lstm_gates_bwd(gen)])
+    if args.kernels_only:
+        log(card)
+        return
 
     # 4. the prediction path, served
     launches = serve_phase(args, card)
@@ -843,8 +921,8 @@ def main() -> None:
         k["launches"] = n
 
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")
+             "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in order}
                                   for d in kernels]}))
     print(card)

@@ -31,10 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes; each returns the cudaError_t of its launch.
 SIGNATURES = {
-    # x, w, y, B, H, W, C, K, bf16, device, stream
-    "pivp_local_apply_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, g, dw, B, H, W, C, K, bf16, device, stream
-    "pivp_local_apply_bwd_w": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, y, B, H, W, C, K, rows, cols, smem, bf16, device, stream
+    "pivp_local_apply_fwd": (_P, _P, _P) + (_I,) * 10 + (_P,),
+    # x, g, dw, B, H, W, C, K, rows, cols, smem, bf16, device, stream
+    "pivp_local_apply_bwd_w": (_P, _P, _P) + (_I,) * 10 + (_P,),
     # w, g, dx, B, H, W, C, K, bf16, device, stream
     "pivp_local_apply_bwd_x": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # gates, c, new_c, new_h, rows, C, forget_bias, bf16, device, stream

@@ -14,6 +14,7 @@ laid out.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
@@ -23,6 +24,76 @@ import torch.nn.functional as F
 from pivp_tpu_torch.ops.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# The tiled kernels (forward, dW): at most TILE_THREADS threads (one per
+# pixel) and SMEM_LIMIT bytes of shared memory a block; the plan halves
+# the rows of a tile while the grid has fewer than TARGET_BLOCKS blocks
+# (about 16 per SM of an H100's 132, all resident at once at the main
+# shape) and the block more than MIN_THREADS threads: at the main shape,
+# one row of 64 pixels a block, which ran both kernels faster on the
+# H100 than tiles of 2 or 4 rows.
+TILE_THREADS = 256
+MIN_THREADS = 64
+TARGET_BLOCKS = 2048
+SMEM_LIMIT = 232448
+MAX_K = 15
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """A block owns `rows` rows of one sample over `cols` columns, and
+    `smem` bytes of shared memory; `grid` is (column strips, row tiles,
+    samples), the launch's blockIdx (x, y, z)."""
+    rows: int
+    cols: int
+    smem: int
+    grid: Tuple[int, int, int]
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tile_smem_bytes(rows: int, cols: int, w: int, c: int, k: int,
+                    item: int) -> int:
+    """The shared memory of one block (csrc/local_apply.cu `TileLayout`)
+    for a frame `w` pixels wide, the same for the forward and dW: the
+    K*K-wide tile (forward: w in; dW: dW out), the C-wide tile (forward:
+    y out; dW: g in) and the x rows of the tile and its halo of K//2 rows
+    (a full-width tile's as one span, a column strip's with K//2 columns
+    each side), in the storage type, each rounded up to 16 bytes."""
+    p, vec, px = k // 2, 16 // item, rows * cols
+    xw = (cols if cols == w else cols + 2 * p) * c
+    x_tile = _round_up(p * c, vec) + (rows + 2 * p) * xw + p * c
+    return (_round_up(px * k * k * item, 16) + _round_up(px * c * item, 16)
+            + _round_up(x_tile * item, 16))
+
+
+def tile_plan(shape, k: int, dtype: torch.dtype) -> TilePlan:
+    """The tile plan of the forward and dW kernels for x of `shape`
+    (B, H, W, C): full-width tiles up to TILE_THREADS columns (column
+    strips beyond), as many rows as the block's threads allow, halved
+    while the grid is small; then rows, and then columns, halved until
+    the block fits in shared memory."""
+    b, h, w, c = shape
+    if k > MAX_K:
+        raise ValueError(f"the CUDA kernels take K up to {MAX_K}, got {k}")
+    item = torch.empty((), dtype=dtype).element_size()
+    cols = max(1, min(w, TILE_THREADS))
+    rows = max(1, min(h, TILE_THREADS // cols))
+    while (rows > 1 and b * -(-h // rows) * -(-w // cols) < TARGET_BLOCKS
+           and rows * cols > MIN_THREADS):
+        rows = (rows + 1) // 2
+    while tile_smem_bytes(rows, cols, w, c, k, item) > SMEM_LIMIT:
+        if rows > 1:
+            rows = (rows + 1) // 2
+        elif cols > 1:
+            cols = (cols + 1) // 2
+        else:
+            raise ValueError(f"no tile of a ({h},{w},{c}) frame with "
+                             f"K={k} fits in shared memory")
+    return TilePlan(rows, cols, tile_smem_bytes(rows, cols, w, c, k, item),
+                    (-(-w // cols), -(-h // rows), b))
 
 
 def kernel_size(w: torch.Tensor) -> int:
@@ -104,12 +175,13 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-            shape, k: int) -> None:
+            shape, k: int, plan: TilePlan = None) -> None:
     bsz, h, wd, c = shape
+    tiles = () if plan is None else (plan.rows, plan.cols, plan.smem)
     lib, _ = build.load()
     err = getattr(lib, name)(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, c, k,
-        int(a.dtype == torch.bfloat16), a.device.index or 0,
+        *tiles, int(a.dtype == torch.bfloat16), a.device.index or 0,
         torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, name)
 
@@ -123,8 +195,10 @@ def local_kernel_apply_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return local_kernel_apply_plain(x, w)
     _require_cuda(x, "local_kernel_apply")
     _check(x, w)
+    k = kernel_size(w)
     y = torch.empty_like(x)
-    _launch("pivp_local_apply_fwd", x, w, y, x.shape, kernel_size(w))
+    _launch("pivp_local_apply_fwd", x, w, y, x.shape, k,
+            tile_plan(x.shape, k, x.dtype))
     local_kernel_apply.launches += 1
     return y
 
@@ -143,7 +217,8 @@ def local_kernel_apply_bwd_w(x: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"cotangent {tuple(g.shape)} is not x's shape "
                          f"{tuple(x.shape)}")
     dw = x.new_empty(x.shape[:3] + (k * k,))
-    _launch("pivp_local_apply_bwd_w", x, g, dw, x.shape, k)
+    _launch("pivp_local_apply_bwd_w", x, g, dw, x.shape, k,
+            tile_plan(x.shape, k, x.dtype))
     local_kernel_apply_bwd_w.launches += 1
     return dw
 

@@ -188,12 +188,14 @@ def run_training(cfg: TrainConfig,
 
 def run_validation(eval_step, params, val_arrays, batch_size: int,
                    state_cost_weight: float, u8_transfer: bool = False,
-                   device="cpu") -> Dict[str, float]:
-    """One exact validation sweep.
+                   device="cuda") -> Dict[str, float]:
+    """One exact validation sweep, on `device` (the GPU unless the caller
+    asks for the CPU; raises on a host without one).
 
     Aggregates the per-(frame, sequence) metric matrices of the eval
     step, masking the padded duplicate rows of the final partial batch,
     so every metric is independent of batch_size."""
+    device = resolve_device(device)
     recon_cols, state_cols, ssim_cols = [], [], []
     for vbatch, n_valid in dataset_lib.eval_batches(val_arrays,
                                                     batch_size):

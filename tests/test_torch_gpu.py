@@ -28,6 +28,16 @@ def cuda():
     return resolve_device("cuda")
 
 
+# The tiled forward and dW kernels' edges (test_torch_local_apply.py
+# checks that each shape reaches its edge): rows that the tile does not
+# divide, column strips of a wide frame, full-width spans of W=13 that
+# are 16-byte aligned in bfloat16 only for some tiles, and 256x256.
+LOCAL_APPLY_CASES = [
+    ((2, 16, 16, 3), 5), ((2, 16, 16, 3), 3), ((1, 9, 13, 1), 5),
+    ((1, 20, 7, 8), 7), ((1, 300, 17, 5), 5), ((4, 67, 32, 3), 5),
+    ((1, 4, 2048, 3), 5), ((2, 37, 13, 3), 5), ((2, 256, 256, 3), 5)]
+
+
 def _close(got, want, tol):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -35,9 +45,7 @@ def _close(got, want, tol):
         float((got.float() - want.float()).abs().max())
 
 
-@pytest.mark.parametrize("shape,k", [
-    ((2, 16, 16, 3), 5), ((2, 16, 16, 3), 3), ((1, 9, 13, 1), 5),
-    ((1, 20, 7, 8), 7), ((1, 300, 17, 5), 5)])
+@pytest.mark.parametrize("shape,k", LOCAL_APPLY_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_local_apply_kernel_matches_plain(cuda, shape, k, dtype, tol):
@@ -103,9 +111,7 @@ def test_kernel_rollout_matches_plain_rollout(cuda):
     assert float((out_k["psnrs"] - out_p["psnrs"]).abs().max()) <= 0.01
 
 
-@pytest.mark.parametrize("shape,k", [
-    ((2, 16, 16, 3), 5), ((2, 16, 16, 3), 3), ((1, 9, 13, 1), 5),
-    ((1, 20, 7, 8), 7), ((1, 300, 17, 5), 5)])
+@pytest.mark.parametrize("shape,k", LOCAL_APPLY_CASES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_local_apply_bwd_kernels_match_plain(cuda, shape, k, dtype, tol):
@@ -191,3 +197,17 @@ def test_train_step_grads_with_kernels_match_plain(cuda):
                                        sampling.generator(0, it))
         for a, b in zip(got, want):
             assert float((a - b).norm() / (b.norm() + 1e-30)) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 64, 3), (2, 37, 13, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_apply_kernels_repeat_bit_for_bit(cuda, shape, dtype):
+    # Gathers without atomics: two launches give the same bits.
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    gy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = torch.rand(shape[:3] + (25,), generator=g, device=cuda).to(dtype)
+    assert torch.equal(la.local_kernel_apply(x, w),
+                       la.local_kernel_apply(x, w))
+    assert torch.equal(la.local_kernel_apply_bwd_w(x, gy, 5),
+                       la.local_kernel_apply_bwd_w(x, gy, 5))

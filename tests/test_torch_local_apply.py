@@ -114,3 +114,79 @@ def test_cpu_backward_counts_no_launch():
     assert (tla.local_kernel_apply_bwd_w.launches,
             tla.local_kernel_apply_bwd_x.launches) == counts
     assert x.grad is not None and w.grad is not None
+
+
+# The tile plan of the CUDA forward and dW kernels: computed here, on the
+# CPU, and passed to the kernels, which check it against their own
+# shared-memory layout.
+PLAN_SHAPES = [(32, 64, 64, 3), (4, 256, 256, 3), (1, 4, 2048, 3)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_plan_fits_and_covers_the_frame(shape, k, dtype):
+    b, h, w, _ = shape
+    plan = tla.tile_plan(shape, k, dtype)
+    assert plan.smem <= tla.SMEM_LIMIT == 232448
+    assert plan.rows * plan.cols <= tla.TILE_THREADS
+    # Block (bx, by, bz) owns rows [by*rows, +rows) and columns
+    # [bx*cols, +cols) of sample bz, clipped to the frame, as the kernel
+    # reads blockIdx.
+    hits = np.zeros((b, h, w), np.int32)
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            hits[:, by * plan.rows:(by + 1) * plan.rows,
+                 bx * plan.cols:(bx + 1) * plan.cols] += 1
+    assert plan.grid[2] == b
+    assert (hits == 1).all()
+    if shape == PLAN_SHAPES[0]:
+        assert np.prod(plan.grid) >= 132          # the H100's SMs
+
+
+def test_tile_plan_smem_matches_the_kernel_layout():
+    # At the main shape in float32: tiles of 1 row x 64 columns. The x
+    # rows 2 above to 2 below the tile are one span of 5 * 192 floats,
+    # after 8 floats (the 6-float halo before it, rounded to 16 bytes) and
+    # before 6 (the halo after it): 974 floats, 3,904 bytes aligned.
+    plan = tla.tile_plan((32, 64, 64, 3), 5, torch.float32)
+    assert (plan.rows, plan.cols) == (1, 64)
+    assert plan.grid == (1, 64, 32)
+    want = 64 * 25 * 4 + 3904 + 64 * 3 * 4
+    assert plan.smem == want == 11072
+    # A column strip keeps its halo columns in each row, 256 + 4 columns:
+    # (8 + 5 * 260 * 3 + 6) floats, 15,656 bytes, 15,664 aligned.
+    strip = tla.tile_plan((1, 4, 2048, 3), 5, torch.float32)
+    assert strip.grid == (8, 4, 1)
+    assert strip.smem == 256 * 25 * 4 + 15664 + 256 * 3 * 4
+
+
+def test_tile_plan_shrinks_a_tile_to_fit():
+    plan = tla.tile_plan((1, 8, 64, 600), 7, torch.float32)
+    assert plan.smem <= tla.SMEM_LIMIT
+    assert plan.smem == tla.tile_smem_bytes(plan.rows, plan.cols, 64, 600,
+                                            7, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tla.tile_plan((1, 8, 64, 5000), 7, torch.float32)
+
+
+@pytest.mark.parametrize("shape,k,dtype,edge", [
+    ((4, 67, 32, 3), 5, torch.float32, "ragged rows"),
+    ((1, 4, 2048, 3), 5, torch.float32, "column strips"),
+    ((2, 37, 13, 3), 5, torch.bfloat16, "unaligned spans"),
+])
+def test_gpu_cases_reach_the_tile_edges(shape, k, dtype, edge):
+    # The shapes that test_torch_gpu.py adds for the tiled kernels reach
+    # the edge they are there for.
+    b, h, w, _ = shape
+    plan = tla.tile_plan(shape, k, dtype)
+    if edge == "ragged rows":
+        assert h % plan.rows != 0
+    elif edge == "column strips":
+        assert plan.cols < w
+    else:
+        # Full-width dW spans start at (b*H + h0) * W*K*K elements, in
+        # bytes a multiple of 16 for some row tiles and not for others.
+        starts = {(i * h + h0) * w * k * k * 2 % 16
+                  for i in range(b) for h0 in range(0, h, plan.rows)}
+        assert plan.cols == w and 0 in starts and len(starts) > 1

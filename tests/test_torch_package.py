@@ -81,6 +81,19 @@ def test_entry_points_raise_without_gpu(tmp_path):
     assert not os.listdir(tmp_path)
 
 
+def test_run_validation_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    arrays = tuple(np.zeros((2, 3) + s, np.float32)
+                   for s in ((16, 16, 3), (5,), (5,)))
+
+    def eval_step(params, batch):
+        raise AssertionError("validation ran on the CPU")
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.run_validation(eval_step, {}, arrays, 2, 1e-4)
+
+
 def test_heads_of_later_slices_raise():
     cfg = ModelConfig(model_type="STP")
     with pytest.raises(NotImplementedError, match="CDNA"):

@@ -32,7 +32,9 @@ T, B = 4, 2
 def setup():
     jcfg = jconfig.ModelConfig(use_pallas=True, pallas_interpret=True,
                                use_pallas_gates=False, **SMALL)
-    params = jax.device_get(jpred.init_params(jax.random.PRNGKey(3), jcfg))
+    # Under jit: one compile instead of an eager dispatch per layer.
+    params = jax.device_get(jax.jit(jpred.init_params, static_argnums=1)(
+        jax.random.PRNGKey(3), jcfg))
     rng = np.random.RandomState(0)
     data = (rng.rand(T, B, 16, 16, 3).astype(np.float32),
             (rng.randn(T, B, 5) * 0.5).astype(np.float32),
