@@ -48,6 +48,7 @@ bound, which counts every byte from and to device memory.
 
 Usage: python3 chip_smoke.py [--seed 0] [--requests 3] [--train_steps 3]
                              [--out DIR] [--kernels_only]
+                             [--bwd_x_rows 2,4,8]
 """
 
 from __future__ import annotations
@@ -95,6 +96,11 @@ STEPS, PREDICTED = 9, 8
 # small gradients of the first stages by about GRAD_TOL, on either side
 # (the float64 distances are printed for such tensors).
 GRAD_TOL = 1e-4
+# The CUDA function that each counted kernel wrapper launches, in the
+# order of `_counted()` and of the `kernels` line.
+CUDA_NAMES = ("local_apply_fwd_kernel", "lstm_gates_fwd_kernel",
+              "local_apply_bwd_w_kernel", "local_apply_bwd_x_kernel",
+              "lstm_gates_bwd_kernel")
 
 
 def fail(msg: str) -> None:
@@ -331,6 +337,9 @@ def check_local_apply_bwd(gen: torch.Generator) -> list:
         (LOCAL_APPLY_SHAPE, 5, torch.bfloat16, 2e-2),
         ((4, 256, 256, 3), 5, torch.float32, 1e-5),
         (LOCAL_APPLY_SHAPE, 3, torch.float32, 1e-5),
+        # Unaligned bfloat16 spans, and column strips of a wide frame.
+        ((2, 37, 13, 3), 5, torch.bfloat16, 2e-2),
+        ((1, 4, 2048, 3), 5, torch.float32, 1e-5),
     ]
     rows = {}
     for shape, k, dtype, tol in cases:
@@ -381,6 +390,37 @@ def check_local_apply_bwd(gen: torch.Generator) -> list:
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bms"],
          "bound_by": rows[name]["by"], "library_ms": None}
         for name, line in (("dW", 247), ("dX", 293))]
+
+
+def sweep_bwd_x(gen: torch.Generator, heights) -> None:
+    """dX at the main shape in float32 with tiles of each of `heights`
+    rows (the rest of the plan as tile_plan_bwd_x makes it): agreement
+    with the plain version, and warm and cold times, to choose the plan."""
+    from pivp_tpu_torch.ops.kernels import local_apply as la
+
+    shape, k = LOCAL_APPLY_SHAPE, 5
+    b, h, wd, c = shape
+    _, g, w = la_inputs(shape, k, torch.float32, gen)
+    want = la.local_kernel_apply_bwd_x_plain(w, g)
+    for rows in heights:
+        plan = la.tile_plan_bwd_x(shape, k, torch.float32, rows=rows)
+
+        def run(ws, gs, plan=plan):
+            dx = torch.empty_like(gs)
+            la._launch("pivp_local_apply_bwd_x", ws, gs, dx, shape, k, plan)
+            return dx
+
+        err = max_err(run(w, g), want)
+        if not close(run(w, g), want, 1e-5):
+            fail(f"dX with tiles of {rows} rows: {err} > 1e-5")
+        ms = cuda_ms(lambda: run(w, g), graph=True)
+        cold = cold_ms(run, lambda: la_inputs(shape, k, torch.float32,
+                                              gen)[:0:-1],
+                       (b * h * wd * c + b * h * wd * k * k) * 4)
+        log(f"dX plan: tiles of {plan.rows} rows x {plan.cols} columns, "
+            f"{int(np.prod(plan.grid))} blocks, {plan.smem} bytes of shared "
+            f"memory: max|kernel-plain| {err:.3e}; {ms * 1e3:.2f} us warm, "
+            f"{cold * 1e3:.2f} us cold")
 
 
 def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
@@ -470,6 +510,15 @@ def profile_request(serve, request, trace_path, what="request") -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total:10.1f} us  x{e.count:<4d} "
             f"{e.key[:100]}")
+    # The port's kernels, which the list above rarely reaches, matched by
+    # their CUDA function names (each type and size is a key of its own).
+    for fn, cuda_name in zip(_counted(), CUDA_NAMES):
+        found = [e for e in kernels if f"{cuda_name}<" in e.key]
+        us = sum(e.self_device_time_total for e in found)
+        n = sum(e.count for e in found)
+        log(f"  in the {what}: {fn.__name__} ({cuda_name}) "
+            + (f"{us:.1f} us in {n} launches, {us / n:.2f} us per launch"
+               if n else "not in the trace"))
 
 
 def rollout_flops(params, cfg, batch: int) -> float:
@@ -874,6 +923,9 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join("chiprun_out", "smoke"))
     ap.add_argument("--kernels_only", action="store_true",
                     help="stop after phase 3 (no JSON lines are printed)")
+    ap.add_argument("--bwd_x_rows", default="",
+                    help="comma-separated tile heights: after phase 3, "
+                    "time dX at the main shape with each")
     args = ap.parse_args()
     args.run_name = "00000000-000000-CDNA-32"
     if args.requests < 1:
@@ -903,6 +955,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = ([check_local_apply(gen), check_lstm_gates(gen)]
                + check_local_apply_bwd(gen) + [check_lstm_gates_bwd(gen)])
+    if args.bwd_x_rows:
+        sweep_bwd_x(gen, [int(r) for r in args.bwd_x_rows.split(",")])
     if args.kernels_only:
         log(card)
         return

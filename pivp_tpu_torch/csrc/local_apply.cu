@@ -51,17 +51,38 @@
 //    (dW) in shared memory at stride K*K, odd, so a warp's accesses fall
 //    in distinct banks; x at stride C (3, odd). The main path's K = 5 and
 //    C = 3 are compile-time constants; other sizes take a loop.
-//  * Tried on the H100 and left out, as no faster there: a persistent
+//  * Tried for the forward and dW on the H100 and left out, as no faster
+//    there: a persistent
 //    grid that stages the next tile while it computes one (the loads are
 //    the forward's limit, but every block's are in flight from the start
 //    either way), staging by TMA bulk copies, and storing each warp's
 //    results without a block barrier. PERF.md has the measurements.
-//  * dX (not yet redesigned): one thread per pixel (b,h,w). It gathers
-//    w*g from the K*K pixels whose tap lands on (h,w) (the flipped
-//    offsets), reading one weight of each neighbour and the neighbours'
-//    channels, which L1 shares between neighbouring threads. Channels go
-//    in chunks of 4 so the accumulators stay in registers. Index math in
-//    32 bits when every index fits, in 64 bits otherwise.
+//  * dX: the same tiles, with the halo on both inputs, since each pixel
+//    gathers w*g from the K*K pixels whose flipped tap lands on it. A
+//    block stages w (K*K wide) and g (C wide) over rows h0-p to
+//    h0+rows+p-1 (and columns w0-p to w0+cols+p-1 for a column strip),
+//    computes into a shared dX tile and stores that as one span. A tile
+//    of `rows` rows reads (rows+2p)/rows times w's 13.1 MB from L2, so
+//    its plan (ops/kernels/local_apply.py:tile_plan_bwd_x) takes taller
+//    tiles than the forward's: at the main shape 8 rows of 64 pixels, 256
+//    blocks of 256 threads with 92,640 bytes of shared memory, two per SM,
+//    all resident at once. A thread takes two rows of a column and reads
+//    each neighbour's g once for both; it reads the neighbours' weights
+//    at stride K*K and their g at stride C, both odd. A full-width tile's
+//    staged rows of w, and of g, are one span each, which one thread
+//    hands to the TMA as a bulk copy where both ends are 16-byte aligned:
+//    on the H100 that staged them faster than the threads' cp.async
+//    copies, warm and cold. What bounds dX there: the staging, near the
+//    rate of a device copy with a cold L2, and then the compute, bound by
+//    its shared-memory reads (25 weights and 45 g values a pixel), which
+//    overlaps the staging only across an SM's two blocks: the second
+//    issues its copies a moment after the first.
+//  * Tried for dX on the H100 and left out, as no faster there: bands of
+//    a tile computed as their rows land (a cp.async group or a barrier
+//    for each, all issued at once or two or three ahead), one or four
+//    rows a thread, staging only the taps that each halo row feeds (4-byte
+//    copies), an L2 prefetch of the spans, staging half of w by the TMA
+//    and half by cp.async, and storing dX straight from registers.
 #include "common.cuh"
 
 namespace {
@@ -70,6 +91,13 @@ constexpr int kChunk = 4;
 // Largest thread block of the tiled kernels (rows * cols); the wrapper's
 // plan keeps to it.
 constexpr int kTileThreads = 256;
+// dX's blocks: at most kBwdXThreads threads, a thread a pixel; on the
+// main path (K = 5, C = 3) at most kBwdXMainThreads, a thread for
+// kBwdXPerThread rows of a column, reading each neighbour's g once for
+// all of them. The wrapper's plan keeps to them.
+constexpr int kBwdXThreads = 1024;
+constexpr int kBwdXMainThreads = 256;
+constexpr int kBwdXPerThread = 2;
 
 __host__ __device__ inline int64_t align16(int64_t n) {
   return (n + 15) & ~int64_t(15);
@@ -79,44 +107,82 @@ __host__ __device__ inline int round_up(int n, int m) {
   return (n + m - 1) / m * m;
 }
 
-// Shared-memory layout of a block (ops/kernels/local_apply.py
-// tile_smem_bytes mirrors it): the input tile (forward: w, K*K wide;
-// dW: g, C wide) at 0, the x tile and the output tile (forward: y, C
-// wide; dW: K*K wide), each 16-byte aligned and each rounded up to 16
-// bytes, so that both passes take the same bytes. x pixel (r, j), staged
-// row r and column j in [-p, cols + p), is at x0 + r * xw + j * C. For a
-// full-width tile xw is W * C, so the staged rows are one contiguous
-// span of x and a row's halo columns are the ends of its neighbours
-// (masked in the compute); for a column strip xw is (cols + 2p) * C.
-// x0 is 16-byte aligned.
+// An input staged with a halo of p rows and columns (`width`-wide
+// pixels, `item`-byte elements): the tile's rows and p more above and
+// below, `stride` elements a staged row. Pixel (r, j), staged row r and
+// column j in [-p, cols + p), is `lead` + r * stride + j * width elements
+// from the region's start, so `lead` (p pixels, rounded up to 16 bytes)
+// leaves room for the first row's left halo and the region ends p pixels
+// after the last row; `bytes` is the region rounded up to 16. For a
+// full-width tile the stride is W * width: the staged rows are one
+// contiguous span of the input and a row's halo columns are the ends of
+// its neighbours (masked in the compute); for a column strip it is
+// (cols + 2p) * width.
+struct Halo {
+  int lead, stride;
+  int64_t bytes;
+  __host__ __device__ Halo(int rows, int cols, int W, int width, int p,
+                           int item) {
+    stride = (cols == W ? cols : cols + 2 * p) * width;
+    lead = round_up(p * width, 16 / item);
+    bytes = align16((lead + int64_t(rows + 2 * p) * stride + p * width) *
+                    item);
+  }
+};
+
+// Shared-memory layout of a forward or dW block (ops/kernels/
+// local_apply.py tile_smem_bytes mirrors it): the input tile (forward:
+// w, K*K wide; dW: g, C wide) at 0, the x rows with their halo (Halo),
+// and the output tile (forward: y, C wide; dW: K*K wide), each 16-byte
+// aligned and each rounded up to 16 bytes, so that both passes take the
+// same bytes. x0 is x's pixel (0, 0).
 struct TileLayout {
   int64_t x0, out, bytes;
   int xw;
   __host__ __device__ TileLayout(int rows, int cols, int W, int C, int K,
                                  int item, bool backward) {
-    const int p = K / 2, vec = 16 / item;
-    xw = (cols == W ? cols : cols + 2 * p) * C;
-    const int lead = round_up(p * C, vec);
+    const Halo hx(rows, cols, W, C, K / 2, item);
     const int64_t px = int64_t(rows) * cols;
     const int64_t wide = align16(px * K * K * item);
     const int64_t narrow = align16(px * C * item);
     const int64_t x = backward ? narrow : wide;
-    x0 = x + int64_t(lead) * item;
-    out = x + align16((lead + int64_t(rows + 2 * p) * xw + p * C) * item);
+    xw = hx.stride;
+    x0 = x + int64_t(hx.lead) * item;
+    out = x + hx.bytes;
     bytes = out + (backward ? wide : narrow);
   }
 };
 
+// Shared-memory layout of a dX block (ops/kernels/local_apply.py
+// bwd_x_smem_bytes mirrors it): w with its halo at 0, g with its halo,
+// then the dX tile (C wide), each rounded up to 16 bytes; w0 and g0 are
+// their pixels (0, 0).
+struct BwdXLayout {
+  Halo w, g;
+  int64_t w0, g0, out, bytes;
+  __host__ __device__ BwdXLayout(int rows, int cols, int W, int C, int K,
+                                 int item)
+      : w(rows, cols, W, K * K, K / 2, item),
+        g(rows, cols, W, C, K / 2, item) {
+    w0 = int64_t(w.lead) * item;
+    g0 = w.bytes + int64_t(g.lead) * item;
+    out = w.bytes + g.bytes;
+    bytes = out + align16(int64_t(rows) * cols * C * item);
+  }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -178,19 +244,19 @@ __device__ __forceinline__ void store(T* dst, const T* src, int n, int tid,
 
 // The block's tile: sample b, rows [h0, h0 + rv), columns [w0, w0 + wv)
 // of the frame (rv <= rows and wv <= cols at the edges); the block is
-// shaped (cols, rows), one thread per pixel.
+// cols threads wide.
 struct Tile {
   int b, h0, w0, rv, wv, rows, cols, tid, nthreads;
-  __device__ Tile(int H, int W) {
+  __device__ Tile(int H, int W, int tile_rows) {
     cols = blockDim.x;
-    rows = blockDim.y;
+    rows = tile_rows;
     w0 = blockIdx.x * cols;
     h0 = blockIdx.y * rows;
     b = blockIdx.z;
     wv = min(cols, W - w0);
     rv = min(rows, H - h0);
     tid = threadIdx.y * cols + threadIdx.x;
-    nthreads = rows * cols;
+    nthreads = blockDim.y * cols;
   }
   // The element offset of pixel (h, w) of this sample, for a tensor
   // whose pixels are `width` elements wide.
@@ -219,24 +285,25 @@ __device__ void move_rows(T* g, T* sm, const Tile& t, int H, int W,
   }
 }
 
-// Stages the frame's part of x rows [h0-p, h0+rv+p) x columns
-// [w0-p, w0+cols+p) at x0 (TileLayout); the rest is left as it is and
+// Stages the frame's part of the input's rows [h0-p, h0+rv+p) x columns
+// [w0-p, w0+cols+p) (`width`-wide pixels) with its pixel (0, 0) at s0 and
+// `stride` elements a staged row (Halo); the rest is left as it is and
 // masked in the compute. A full-width tile's rows are one span.
 template <typename T>
-__device__ void stage_x(T* x0, const T* x, const Tile& t, int H, int W,
-                        int C, int p, int xw) {
+__device__ void stage_halo(T* s0, const T* src, const Tile& t, int H, int W,
+                           int width, int p, int stride) {
   const int r_lo = max(p - t.h0, 0);             // staged rows in the frame
   const int r_hi = min(t.rv + 2 * p, H - t.h0 + p);
   if (t.cols == W) {
-    stage(x0 + r_lo * xw, x + t.at(H, W, t.h0 - p + r_lo, 0, C),
-          (r_hi - r_lo) * xw, t.tid, t.nthreads);
+    stage(s0 + r_lo * stride, src + t.at(H, W, t.h0 - p + r_lo, 0, width),
+          (r_hi - r_lo) * stride, t.tid, t.nthreads);
     return;
   }
   const int c_lo = max(t.w0 - p, 0), c_hi = min(t.w0 + t.cols + p, W);
   for (int r = r_lo; r < r_hi; ++r) {
-    stage(x0 + r * xw + (c_lo - t.w0) * C,
-          x + t.at(H, W, t.h0 - p + r, c_lo, C), (c_hi - c_lo) * C, t.tid,
-          t.nthreads);
+    stage(s0 + r * stride + (c_lo - t.w0) * width,
+          src + t.at(H, W, t.h0 - p + r, c_lo, width),
+          (c_hi - c_lo) * width, t.tid, t.nthreads);
   }
 }
 
@@ -246,14 +313,14 @@ enum Pass { kForward, kWeights };
 // rows x cols pixels a block. KT, CT: K and C fixed at compile time (the
 // main path's 5 and 3), or 0 for sizes given at run time.
 template <Pass kPass, typename T, int KT, int CT>
-__global__ void __launch_bounds__(kTileThreads)
-    local_apply_tiled_kernel(const T* __restrict__ x,
-                             const T* __restrict__ a, T* __restrict__ out,
-                             int H, int W, int c, int k) {
+__device__ __forceinline__ void tiled_pass(const T* __restrict__ x,
+                                           const T* __restrict__ a,
+                                           T* __restrict__ out, int H, int W,
+                                           int c, int k) {
   constexpr bool kBackward = kPass == kWeights;
   const int K = KT > 0 ? KT : k, C = CT > 0 ? CT : c;
   const int KK = K * K, p = K / 2;
-  const Tile t(H, W);
+  const Tile t(H, W, blockDim.y);
   const TileLayout lay(t.rows, t.cols, W, C, K, sizeof(T), kBackward);
   extern __shared__ __align__(16) unsigned char smem[];
   T* as = reinterpret_cast<T*>(smem);
@@ -261,7 +328,7 @@ __global__ void __launch_bounds__(kTileThreads)
   T* os = reinterpret_cast<T*>(smem + lay.out);
 
   move_rows<false>(const_cast<T*>(a), as, t, H, W, kBackward ? C : KK);
-  stage_x(xs, x, t, H, W, C, p, lay.xw);
+  stage_halo(xs, x, t, H, W, C, p, lay.xw);
   cp_async_wait_all();
   __syncthreads();
 
@@ -341,94 +408,265 @@ __global__ void __launch_bounds__(kTileThreads)
   move_rows<true>(out, os, t, H, W, kBackward ? KK : C);
 }
 
-template <typename T, typename I>
-__global__ void local_apply_bwd_x_kernel(const T* __restrict__ w,
-                                         const T* __restrict__ g,
-                                         T* __restrict__ dx, int B, int H,
-                                         int W, int C, int K) {
-  const I n = I(B) * H * W;
-  const int KK = K * K;
-  const int pad = K / 2;
-  const I stride = I(gridDim.x) * blockDim.x;
-  for (I p = I(blockIdx.x) * blockDim.x + threadIdx.x; p < n;
-       p += stride) {
-    const I row = p / I(W);
-    const int wi = int(p - row * I(W));
-    const int hi = int(row % I(H));
-    const I bi = row / I(H);
+// One kernel name for each pass, so that a profile tells them apart.
+template <typename T, int KT, int CT>
+__global__ void __launch_bounds__(kTileThreads)
+    local_apply_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                           T* __restrict__ y, int H, int W, int c, int k,
+                           int) {
+  tiled_pass<kForward, T, KT, CT>(x, w, y, H, W, c, k);
+}
+
+template <typename T, int KT, int CT>
+__global__ void __launch_bounds__(kTileThreads)
+    local_apply_bwd_w_kernel(const T* __restrict__ x,
+                             const T* __restrict__ g, T* __restrict__ dw,
+                             int H, int W, int c, int k, int) {
+  tiled_pass<kWeights, T, KT, CT>(x, g, dw, H, W, c, k);
+}
+
+// A shared-memory barrier that completes its phase 0 once one thread has
+// arrived and the bytes it announced have landed.
+__device__ __forceinline__ void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void barrier_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void barrier_expect(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void barrier_wait(uint64_t* bar) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)) : "memory");
+  } while (!done);
+}
+
+// A bulk copy by the Tensor Memory Accelerator of `bytes` (a multiple of
+// 16, both ends 16-byte aligned) from global `src` to shared `dst`,
+// counted against `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// dX on one tile of `rows` x cols pixels a block (KT, CT as above). Each
+// thread sums, for P rows of its column, w*g over the K*K pixels whose
+// flipped tap lands on each: it walks the P + 2p staged rows those taps
+// come from and reads each neighbour's g once for all P of its pixels.
+//
+// On the main path a block has 256 threads and an SM holds two, so each
+// thread may have up to 128 registers: bounding it so made it faster on
+// the H100 than the 64 that a 1024-thread bound leaves.
+template <typename T, int KT, int CT, int P>
+__global__ void __launch_bounds__(KT > 0 ? kBwdXMainThreads : kBwdXThreads,
+                                  KT > 0 ? 2 : 1)
+    local_apply_bwd_x_kernel(const T* __restrict__ w,
+                             const T* __restrict__ g, T* __restrict__ dx,
+                             int H, int W, int c, int k, int rows) {
+  const int K = KT > 0 ? KT : k, C = CT > 0 ? CT : c;
+  const int KK = K * K, p = K / 2;
+  const Tile t(H, W, rows);
+  const BwdXLayout lay(t.rows, t.cols, W, C, K, sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ws = reinterpret_cast<T*>(smem + lay.w0);
+  T* gs = reinterpret_cast<T*>(smem + lay.g0);
+  T* os = reinterpret_cast<T*>(smem + lay.out);
+
+  // A full-width tile's staged rows of w, and of g, are one span each:
+  // where both ends are 16-byte aligned, one thread hands them to the
+  // TMA as two bulk copies, counted on a barrier. Otherwise the threads
+  // stage them (cp.async, or plain loads for bfloat16). The barrier is in
+  // static shared memory: at the end of the dynamic layout it made the
+  // kernel slower on the H100.
+  __shared__ alignas(8) uint64_t landed;
+  const bool bulk = t.cols == W && aligned16(w, g) &&
+                    (int64_t(W) * KK * sizeof(T)) % 16 == 0 &&
+                    (int64_t(W) * C * sizeof(T)) % 16 == 0;
+  if (bulk) {
+    if (t.tid == 0) {
+      barrier_init(&landed);
+      barrier_fence_init();
+      // Blocks past the first one on each SM issue their copies a moment
+      // later, so that the memory serves an SM's first block first and
+      // that block computes while the next one's bytes land, which made
+      // the kernel faster with a cold L2 on the H100.
+      unsigned sms;
+      asm volatile("mov.u32 %0, %%nsmid;\n" : "=r"(sms));
+      if ((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x >=
+          sms) {
+        __nanosleep(1000);
+      }
+      const int r_lo = max(p - t.h0, 0);          // staged rows in the frame
+      const int r_hi = min(t.rv + 2 * p, H - t.h0 + p);
+      const int h = t.h0 - p + r_lo;
+      const unsigned wb = (r_hi - r_lo) * lay.w.stride * sizeof(T);
+      const unsigned gb = (r_hi - r_lo) * lay.g.stride * sizeof(T);
+      barrier_expect(&landed, wb + gb);
+      bulk_copy(ws + r_lo * lay.w.stride, w + t.at(H, W, h, 0, KK), wb,
+                &landed);
+      bulk_copy(gs + r_lo * lay.g.stride, g + t.at(H, W, h, 0, C), gb,
+                &landed);
+    }
+    __syncthreads();                         // the barrier is initialised
+    barrier_wait(&landed);
+  } else {
+    stage_halo(ws, w, t, H, W, KK, p, lay.w.stride);
+    stage_halo(gs, g, t, H, W, C, p, lay.g.stride);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+
+  const int lc = threadIdx.x, lr0 = threadIdx.y * P;
+  if (lc < t.wv && lr0 < t.rv) {
+    // Pixel i of the thread (row lr0 + i) takes tap (tx, ty) from staged
+    // row lr0 + j, j = i + 2p - tx, and column lc + p - ty; from outside
+    // the frame it takes nothing.
+    bool row_in[KT > 0 ? P + KT - 1 : P + 14], col_in[KT > 0 ? KT : 15];
+    for (int j = 0; j < P + 2 * p; ++j) {
+      const int hq = t.h0 - p + lr0 + j;
+      row_in[j] = hq >= 0 && hq < H;
+    }
+    for (int ty = 0; ty < K; ++ty) {
+      const int wq = t.w0 + lc + p - ty;
+      col_in[ty] = wq >= 0 && wq < W;
+    }
     for (int c0 = 0; c0 < C; c0 += kChunk) {
-      float acc[kChunk];
+      float acc[P][kChunk];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) acc[j] = 0.0f;
-      for (int tx = 0; tx < K; ++tx) {
-        const int hq = hi - tx + pad;
-        if (hq < 0 || hq >= H) continue;
+      for (int i = 0; i < P; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) acc[i][jj] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < P + 2 * p; ++j) {
+        const T* wrow = ws + (lr0 + j) * lay.w.stride + (lc + p) * KK;
+        const T* grow = gs + (lr0 + j) * lay.g.stride + (lc + p) * C + c0;
+#pragma unroll
         for (int ty = 0; ty < K; ++ty) {
-          const int wq = wi - ty + pad;
-          if (wq < 0 || wq >= W) continue;
-          const I q = (bi * H + hq) * W + wq;
-          const float wt = pivp::to_f32(w[q * KK + tx * K + ty]);
-          const T* gq = g + q * C + c0;
+          if (!(row_in[j] && col_in[ty])) continue;
+          float gv[kChunk];
 #pragma unroll
-          for (int j = 0; j < kChunk; ++j) {
-            if (c0 + j < C) acc[j] += wt * pivp::to_f32(gq[j]);
+          for (int jj = 0; jj < kChunk; ++jj) {
+            gv[jj] = c0 + jj < C ? pivp::to_f32(grow[jj - ty * C]) : 0.0f;
+          }
+          const T* wq = wrow - ty * KK + ty;      // tap (0, ty)
+#pragma unroll
+          for (int tx = 0; tx < K; ++tx) {
+            const int i = j + tx - 2 * p;
+            if (i < 0 || i >= P) continue;
+            const float wt = pivp::to_f32(wq[tx * K]);
+#pragma unroll
+            for (int jj = 0; jj < kChunk; ++jj) {
+              acc[P == 1 ? 0 : i][jj] += wt * gv[jj];
+            }
           }
         }
       }
-      T* dp = dx + p * C + c0;
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (c0 + j < C) dp[j] = pivp::from_f32<T>(acc[j]);
+      for (int i = 0; i < P; ++i) {
+        T* op = os + ((lr0 + i) * t.cols + lc) * C + c0;
+#pragma unroll
+        for (int jj = 0; jj < kChunk; ++jj) {
+          if (lr0 + i < t.rv && c0 + jj < C) {
+            op[jj] = pivp::from_f32<T>(acc[i][jj]);
+          }
+        }
       }
     }
   }
+  __syncthreads();
+  move_rows<true>(dx, os, t, H, W, C);
 }
 
-// True when every element index of a (B,H,W,max(K*K,C)) tensor, plus a
-// grid stride, fits in 31 bits.
-inline bool fits_32(int B, int H, int W, int C, int K) {
-  const int64_t width = K * K > C ? K * K : C;
-  return int64_t(B) * H * W * width < (int64_t(1) << 31);
-}
+// How a kernel takes its tile: on the main path (K = 5, C = 3) a thread
+// for `per_thread` rows of a column in a block of at most `main_threads`,
+// elsewhere a thread a pixel in a block of at most `any_threads`; and
+// `static_smem` bytes of static shared memory beside its layout.
+struct Shape {
+  int per_thread, main_threads, any_threads, static_smem;
+};
 
-// Launches a tiled kernel with the wrapper's plan, after checking it: a
-// block of rows x cols threads, at most kTileThreads; `smem` the bytes
-// of TileLayout, at most the 227 KB a block may have; K at most 15.
-template <Pass kPass, typename T>
-int launch_tiled(const void* x, const void* a, void* out, int B, int H,
-                 int W, int C, int K, int rows, int cols, int smem,
-                 cudaStream_t s) {
-  const TileLayout lay(rows, cols, W, C, K, sizeof(T), kPass == kWeights);
-  if (rows < 1 || cols < 1 || rows * cols > kTileThreads || K > 15 ||
-      smem != lay.bytes || smem > 232448 || B > 65535 ||
-      (H + rows - 1) / rows > 65535) {
+// Launches `fixed` (K = 5 and C = 3 compiled as constants) or `any` (any
+// other K and C) with the wrapper's plan, after checking it against the
+// kernel's Shape and its own layout (`layout_bytes`): tiles of `rows` x
+// cols pixels, at most the 227 KB of shared memory a block may have, K
+// at most 15.
+template <typename T, typename Kernel>
+int launch_plan(Kernel fixed, Kernel any, Shape shape, int64_t layout_bytes,
+                const void* a, const void* b, void* out, int B, int H,
+                int W, int C, int K, int rows, int cols, int smem,
+                cudaStream_t s) {
+  const bool main_path = K == 5 && C == 3;
+  const int per = main_path ? shape.per_thread : 1;
+  const int max_threads = main_path ? shape.main_threads : shape.any_threads;
+  if (rows < 1 || cols < 1 || rows % per != 0 ||
+      int64_t(rows / per) * cols > max_threads || K > 15 ||
+      smem != layout_bytes || smem + shape.static_smem > 232448 ||
+      B > 65535 || (H + rows - 1) / rows > 65535) {
     return int(cudaErrorInvalidValue);
   }
-  // The main path's K = 5, C = 3 compiled as constants, any other K and
-  // C at run time.
-  auto kernel = K == 5 && C == 3 ? local_apply_tiled_kernel<kPass, T, 5, 3>
-                                 : local_apply_tiled_kernel<kPass, T, 0, 0>;
+  Kernel kernel = main_path ? fixed : any;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return int(err);
   }
   const dim3 grid((W + cols - 1) / cols, (H + rows - 1) / rows, B);
-  kernel<<<grid, dim3(cols, rows), smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a),
-      static_cast<T*>(out), H, W, C, K);
+  kernel<<<grid, dim3(cols, rows / per), smem, s>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b),
+      static_cast<T*>(out), H, W, C, K, rows);
   return int(cudaGetLastError());
 }
 
-// Launch kernel<T, uint32_t> or kernel<T, int64_t> for these sizes.
-#define PIVP_LAUNCH_INDEXED(kernel, T, blocks, s, ...)                   \
-  do {                                                                  \
-    if (fits_32(B, H, W, C, K)) {                                       \
-      kernel<T, uint32_t><<<blocks, pivp::kThreads, 0, s>>>(__VA_ARGS__); \
-    } else {                                                            \
-      kernel<T, int64_t><<<blocks, pivp::kThreads, 0, s>>>(__VA_ARGS__);  \
-    }                                                                   \
-  } while (0)
+template <typename T>
+int launch_fwd(const void* x, const void* w, void* y, int B, int H, int W,
+               int C, int K, int rows, int cols, int smem, cudaStream_t s) {
+  const TileLayout lay(rows, cols, W, C, K, sizeof(T), false);
+  return launch_plan<T>(local_apply_fwd_kernel<T, 5, 3>,
+                        local_apply_fwd_kernel<T, 0, 0>,
+                        Shape{1, kTileThreads, kTileThreads, 0}, lay.bytes, x, w, y, B,
+                        H, W, C, K, rows, cols, smem, s);
+}
+
+template <typename T>
+int launch_bwd_w(const void* x, const void* g, void* dw, int B, int H,
+                 int W, int C, int K, int rows, int cols, int smem,
+                 cudaStream_t s) {
+  const TileLayout lay(rows, cols, W, C, K, sizeof(T), true);
+  return launch_plan<T>(local_apply_bwd_w_kernel<T, 5, 3>,
+                        local_apply_bwd_w_kernel<T, 0, 0>,
+                        Shape{1, kTileThreads, kTileThreads, 0}, lay.bytes, x, g, dw, B,
+                        H, W, C, K, rows, cols, smem, s);
+}
+
+template <typename T>
+int launch_bwd_x(const void* w, const void* g, void* dx, int B, int H,
+                 int W, int C, int K, int rows, int cols, int smem,
+                 cudaStream_t s) {
+  const BwdXLayout lay(rows, cols, W, C, K, sizeof(T));
+  return launch_plan<T>(local_apply_bwd_x_kernel<T, 5, 3, kBwdXPerThread>,
+                        local_apply_bwd_x_kernel<T, 0, 0, 1>,
+                        Shape{kBwdXPerThread, kBwdXMainThreads,
+                              kBwdXThreads, 8},
+                        lay.bytes, w, g, dx, B, H, W, C, K, rows, cols, smem,
+                        s);
+}
 
 }  // namespace
 
@@ -444,10 +682,10 @@ extern "C" int pivp_local_apply_fwd(const void* x, const void* w, void* y,
   if (err != cudaSuccess) return int(err);
   if (int64_t(B) * H * W == 0 || C == 0) return int(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_tiled<kForward, __nv_bfloat16>(
-                    x, w, y, B, H, W, C, K, rows, cols, smem, s)
-              : launch_tiled<kForward, float>(x, w, y, B, H, W, C, K, rows,
-                                              cols, smem, s);
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, w, y, B, H, W, C, K, rows,
+                                          cols, smem, s)
+              : launch_fwd<float>(x, w, y, B, H, W, C, K, rows, cols, smem,
+                                  s);
 }
 
 // x, g (B,H,W,C), dw (B,H,W,K*K): contiguous, all of one type, float32
@@ -462,35 +700,26 @@ extern "C" int pivp_local_apply_bwd_w(const void* x, const void* g,
   if (err != cudaSuccess) return int(err);
   if (int64_t(B) * H * W == 0) return int(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_tiled<kWeights, __nv_bfloat16>(
-                    x, g, dw, B, H, W, C, K, rows, cols, smem, s)
-              : launch_tiled<kWeights, float>(x, g, dw, B, H, W, C, K, rows,
-                                              cols, smem, s);
+  return bf16 ? launch_bwd_w<__nv_bfloat16>(x, g, dw, B, H, W, C, K, rows,
+                                            cols, smem, s)
+              : launch_bwd_w<float>(x, g, dw, B, H, W, C, K, rows, cols,
+                                    smem, s);
 }
 
 // w (B,H,W,K*K), g, dx (B,H,W,C): contiguous, all of one type, float32
-// (bf16 == 0) or bfloat16. Launches on `stream` of `device` and returns
-// the cudaError_t of the launch.
+// (bf16 == 0) or bfloat16; the dX tile plan (rows, cols, smem) from the
+// wrapper. Launches on `stream` of `device` and returns the cudaError_t
+// of the launch.
 extern "C" int pivp_local_apply_bwd_x(const void* w, const void* g,
                                       void* dx, int B, int H, int W, int C,
-                                      int K, int bf16, int device,
-                                      void* stream) {
+                                      int K, int rows, int cols, int smem,
+                                      int bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
-  const int64_t n = int64_t(B) * H * W;
-  if (n == 0 || C == 0) return int(cudaGetLastError());
-  const unsigned int blocks = pivp::grid_for(n);
+  if (int64_t(B) * H * W == 0 || C == 0) return int(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    PIVP_LAUNCH_INDEXED(local_apply_bwd_x_kernel, T, blocks, s,
-                        static_cast<const T*>(w), static_cast<const T*>(g),
-                        static_cast<T*>(dx), B, H, W, C, K);
-  } else {
-    PIVP_LAUNCH_INDEXED(local_apply_bwd_x_kernel, float, blocks, s,
-                        static_cast<const float*>(w),
-                        static_cast<const float*>(g),
-                        static_cast<float*>(dx), B, H, W, C, K);
-  }
-  return int(cudaGetLastError());
+  return bf16 ? launch_bwd_x<__nv_bfloat16>(w, g, dx, B, H, W, C, K, rows,
+                                            cols, smem, s)
+              : launch_bwd_x<float>(w, g, dx, B, H, W, C, K, rows, cols,
+                                    smem, s);
 }

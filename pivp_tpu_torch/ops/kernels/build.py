@@ -35,8 +35,8 @@ SIGNATURES = {
     "pivp_local_apply_fwd": (_P, _P, _P) + (_I,) * 10 + (_P,),
     # x, g, dw, B, H, W, C, K, rows, cols, smem, bf16, device, stream
     "pivp_local_apply_bwd_w": (_P, _P, _P) + (_I,) * 10 + (_P,),
-    # w, g, dx, B, H, W, C, K, bf16, device, stream
-    "pivp_local_apply_bwd_x": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # w, g, dx, B, H, W, C, K, rows, cols, smem, bf16, device, stream
+    "pivp_local_apply_bwd_x": (_P, _P, _P) + (_I,) * 10 + (_P,),
     # gates, c, new_c, new_h, rows, C, forget_bias, bf16, device, stream
     "pivp_lstm_gates_fwd": (_P, _P, _P, _P, ctypes.c_int64, _I,
                             ctypes.c_float, _I, _I, _P),

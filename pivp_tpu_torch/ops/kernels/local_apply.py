@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,21 @@ MIN_THREADS = 64
 TARGET_BLOCKS = 2048
 SMEM_LIMIT = 232448
 MAX_K = 15
+# The dX kernel stages w and g with a halo of K//2 rows above and below
+# its tile, so its tiles are taller: as many rows as a block's threads
+# take, halved while the grid has fewer than BWD_X_BLOCKS blocks (two per
+# SM of an H100, all resident at once at the main shape) but not below
+# K - 1 rows, where the halo doubles what a tile reads. A block has up to
+# BWD_X_THREADS threads, a thread a pixel; at K = 5, C = 3 (the main
+# path) up to BWD_X_MAIN_THREADS, a thread for BWD_X_PER_THREAD rows of a
+# column (the kernel's kBwdXThreads, kBwdXMainThreads, kBwdXPerThread).
+# The kernel keeps an 8-byte barrier in static shared memory, which the
+# block's dynamic shared memory leaves room for.
+BWD_X_THREADS = 1024
+BWD_X_MAIN_THREADS = 256
+BWD_X_PER_THREAD = 2
+BWD_X_BLOCKS = 256
+BWD_X_SMEM_LIMIT = SMEM_LIMIT - 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,19 +69,62 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _halo_bytes(rows: int, cols: int, w: int, width: int, p: int,
+                item: int) -> int:
+    """An input staged with a halo of p rows and columns
+    (csrc/local_apply.cu `Halo`): p pixels before the first row (rounded
+    up to 16 bytes), rows + 2p staged rows (a full-width tile's as one
+    span of the frame's rows, a column strip's with p columns each side)
+    and p pixels after them, rounded up to 16 bytes."""
+    stride = (cols if cols == w else cols + 2 * p) * width
+    lead = _round_up(p * width, 16 // item)
+    return _round_up((lead + (rows + 2 * p) * stride + p * width) * item, 16)
+
+
 def tile_smem_bytes(rows: int, cols: int, w: int, c: int, k: int,
                     item: int) -> int:
     """The shared memory of one block (csrc/local_apply.cu `TileLayout`)
     for a frame `w` pixels wide, the same for the forward and dW: the
     K*K-wide tile (forward: w in; dW: dW out), the C-wide tile (forward:
-    y out; dW: g in) and the x rows of the tile and its halo of K//2 rows
-    (a full-width tile's as one span, a column strip's with K//2 columns
-    each side), in the storage type, each rounded up to 16 bytes."""
-    p, vec, px = k // 2, 16 // item, rows * cols
-    xw = (cols if cols == w else cols + 2 * p) * c
-    x_tile = _round_up(p * c, vec) + (rows + 2 * p) * xw + p * c
+    y out; dW: g in) and the x rows of the tile with their halo, in the
+    storage type, each rounded up to 16 bytes."""
+    px = rows * cols
     return (_round_up(px * k * k * item, 16) + _round_up(px * c * item, 16)
-            + _round_up(x_tile * item, 16))
+            + _halo_bytes(rows, cols, w, c, k // 2, item))
+
+
+def bwd_x_smem_bytes(rows: int, cols: int, w: int, c: int, k: int,
+                     item: int) -> int:
+    """The shared memory of one dX block (csrc/local_apply.cu
+    `BwdXLayout`): w (K*K wide) and g (C wide), each with its halo, and
+    the dX tile, in the storage type, each rounded up to 16 bytes."""
+    return (_halo_bytes(rows, cols, w, k * k, k // 2, item)
+            + _halo_bytes(rows, cols, w, c, k // 2, item)
+            + _round_up(rows * cols * c * item, 16))
+
+
+def _fit(shape, k: int, item: int, rows: int, cols: int, smem_bytes,
+         per: int = 1, limit: int = SMEM_LIMIT) -> TilePlan:
+    """The plan of (rows, cols), with rows (kept a multiple of `per`) and
+    then columns halved until the block fits in `limit` bytes of shared
+    memory."""
+    b, h, w, c = shape
+    while smem_bytes(rows, cols, w, c, k, item) > limit:
+        if rows > per:
+            rows = _round_up((rows + 1) // 2, per)
+        elif cols > 1:
+            cols = (cols + 1) // 2
+        else:
+            raise ValueError(f"no tile of a ({h},{w},{c}) frame with "
+                             f"K={k} fits in shared memory")
+    return TilePlan(rows, cols, smem_bytes(rows, cols, w, c, k, item),
+                    (-(-w // cols), -(-h // rows), b))
+
+
+def _item(k: int, dtype: torch.dtype) -> int:
+    if k > MAX_K:
+        raise ValueError(f"the CUDA kernels take K up to {MAX_K}, got {k}")
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def tile_plan(shape, k: int, dtype: torch.dtype) -> TilePlan:
@@ -75,25 +133,45 @@ def tile_plan(shape, k: int, dtype: torch.dtype) -> TilePlan:
     strips beyond), as many rows as the block's threads allow, halved
     while the grid is small; then rows, and then columns, halved until
     the block fits in shared memory."""
-    b, h, w, c = shape
-    if k > MAX_K:
-        raise ValueError(f"the CUDA kernels take K up to {MAX_K}, got {k}")
-    item = torch.empty((), dtype=dtype).element_size()
+    b, h, w, _ = shape
+    item = _item(k, dtype)
     cols = max(1, min(w, TILE_THREADS))
     rows = max(1, min(h, TILE_THREADS // cols))
     while (rows > 1 and b * -(-h // rows) * -(-w // cols) < TARGET_BLOCKS
            and rows * cols > MIN_THREADS):
         rows = (rows + 1) // 2
-    while tile_smem_bytes(rows, cols, w, c, k, item) > SMEM_LIMIT:
-        if rows > 1:
+    return _fit(shape, k, item, rows, cols, tile_smem_bytes)
+
+
+def bwd_x_block(k: int, c: int) -> Tuple[int, int]:
+    """(rows of a column a dX thread computes, threads a block may have)."""
+    if (k, c) == (5, 3):
+        return BWD_X_PER_THREAD, BWD_X_MAIN_THREADS
+    return 1, BWD_X_THREADS
+
+
+def tile_plan_bwd_x(shape, k: int, dtype: torch.dtype,
+                    rows: Optional[int] = None) -> TilePlan:
+    """The tile plan of the dX kernel for g of `shape` (B, H, W, C):
+    full-width tiles up to TILE_THREADS columns (column strips beyond),
+    as many rows as a block's threads take, halved while the grid has
+    fewer than BWD_X_BLOCKS blocks and the tile keeps K - 1 rows (or
+    `rows` rows, as many as the threads take, to time another plan), in
+    whole rows of threads; then rows, and then columns, halved until the
+    block fits in shared memory."""
+    b, h, w, c = shape
+    item = _item(k, dtype)
+    per, threads = bwd_x_block(k, c)
+    cols = max(1, min(w, TILE_THREADS))
+    most = per * max(1, threads // cols)
+    if rows is None:
+        rows = most
+        while (rows > 1 and (rows + 1) // 2 >= k - 1
+               and b * -(-h // rows) * -(-w // cols) < BWD_X_BLOCKS):
             rows = (rows + 1) // 2
-        elif cols > 1:
-            cols = (cols + 1) // 2
-        else:
-            raise ValueError(f"no tile of a ({h},{w},{c}) frame with "
-                             f"K={k} fits in shared memory")
-    return TilePlan(rows, cols, tile_smem_bytes(rows, cols, w, c, k, item),
-                    (-(-w // cols), -(-h // rows), b))
+    rows = _round_up(max(1, min(h, rows, most)), per)
+    return _fit(shape, k, item, rows, cols, bwd_x_smem_bytes, per,
+                BWD_X_SMEM_LIMIT)
 
 
 def kernel_size(w: torch.Tensor) -> int:
@@ -175,14 +253,13 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
-            shape, k: int, plan: TilePlan = None) -> None:
+            shape, k: int, plan: TilePlan) -> None:
     bsz, h, wd, c = shape
-    tiles = () if plan is None else (plan.rows, plan.cols, plan.smem)
     lib, _ = build.load()
     err = getattr(lib, name)(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wd, c, k,
-        *tiles, int(a.dtype == torch.bfloat16), a.device.index or 0,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        plan.rows, plan.cols, plan.smem, int(a.dtype == torch.bfloat16),
+        a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
     build.check(err, name)
 
 
@@ -233,8 +310,10 @@ def local_kernel_apply_bwd_x(w: torch.Tensor, g: torch.Tensor
         return local_kernel_apply_bwd_x_plain(w, g)
     _require_cuda(w, "local_kernel_apply_bwd_x")
     _check(w, g)
+    k = kernel_size(w)
     dx = torch.empty_like(g)
-    _launch("pivp_local_apply_bwd_x", w, g, dx, g.shape, kernel_size(w))
+    _launch("pivp_local_apply_bwd_x", w, g, dx, g.shape, k,
+            tile_plan_bwd_x(g.shape, k, g.dtype))
     local_kernel_apply_bwd_x.launches += 1
     return dx
 

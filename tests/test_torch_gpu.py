@@ -28,10 +28,11 @@ def cuda():
     return resolve_device("cuda")
 
 
-# The tiled forward and dW kernels' edges (test_torch_local_apply.py
-# checks that each shape reaches its edge): rows that the tile does not
-# divide, column strips of a wide frame, full-width spans of W=13 that
-# are 16-byte aligned in bfloat16 only for some tiles, and 256x256.
+# The tiled kernels' edges (test_torch_local_apply.py checks that each
+# shape reaches its edge in the forward and dW plan and in dX's): rows
+# that the tile does not divide, column strips of a wide frame,
+# full-width spans of W=13 that are 16-byte aligned in bfloat16 only for
+# some tiles, and 256x256.
 LOCAL_APPLY_CASES = [
     ((2, 16, 16, 3), 5), ((2, 16, 16, 3), 3), ((1, 9, 13, 1), 5),
     ((1, 20, 7, 8), 7), ((1, 300, 17, 5), 5), ((4, 67, 32, 3), 5),
@@ -211,3 +212,21 @@ def test_local_apply_kernels_repeat_bit_for_bit(cuda, shape, dtype):
                        la.local_kernel_apply(x, w))
     assert torch.equal(la.local_kernel_apply_bwd_w(x, gy, 5),
                        la.local_kernel_apply_bwd_w(x, gy, 5))
+    assert torch.equal(la.local_kernel_apply_bwd_x(w, gy),
+                       la.local_kernel_apply_bwd_x(w, gy))
+
+
+@pytest.mark.parametrize("name,plan_of", [
+    ("pivp_local_apply_fwd", la.tile_plan),
+    ("pivp_local_apply_bwd_w", la.tile_plan),
+    ("pivp_local_apply_bwd_x", la.tile_plan_bwd_x)])
+def test_local_apply_kernels_reject_a_plan_off_their_layout(cuda, name,
+                                                            plan_of):
+    # Each kernel checks the wrapper's tile plan against its own shared
+    # memory layout and refuses to launch on a mismatch.
+    a = torch.zeros(2, 16, 16, 3, device=cuda)
+    b = torch.zeros(2, 16, 16, 25, device=cuda)
+    plan = plan_of(a.shape, 5, a.dtype)
+    bad = dataclasses.replace(plan, smem=plan.smem + 16)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        la._launch(name, a, b, torch.empty_like(a), a.shape, 5, bad)

@@ -190,3 +190,70 @@ def test_gpu_cases_reach_the_tile_edges(shape, k, dtype, edge):
         starts = {(i * h + h0) * w * k * k * 2 % 16
                   for i in range(b) for h0 in range(0, h, plan.rows)}
         assert plan.cols == w and 0 in starts and len(starts) > 1
+
+
+# The dX kernel's own plan: taller tiles, since it stages w and g with a
+# halo of K//2 rows above and below.
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_x_tile_plan_fits_and_covers_the_frame(shape, k, dtype):
+    b, h, w, c = shape
+    plan = tla.tile_plan_bwd_x(shape, k, dtype)
+    # The kernel's 8-byte barrier is static shared memory.
+    assert plan.smem + 8 <= tla.SMEM_LIMIT
+    per, threads = tla.bwd_x_block(k, c)
+    assert plan.rows % per == 0
+    assert plan.rows // per * plan.cols <= threads
+    assert threads == (256 if (k, c) == (5, 3) else 1024)
+    hits = np.zeros((b, h, w), np.int32)
+    for bx in range(plan.grid[0]):
+        for by in range(plan.grid[1]):
+            hits[:, by * plan.rows:(by + 1) * plan.rows,
+                 bx * plan.cols:(bx + 1) * plan.cols] += 1
+    assert plan.grid[2] == b
+    assert (hits == 1).all()
+    if shape == PLAN_SHAPES[0]:
+        assert np.prod(plan.grid) >= 132          # the H100's SMs
+
+
+def test_bwd_x_tile_plan_smem_matches_the_kernel_layout():
+    # At the main shape in float32: tiles of 8 rows x 64 columns. The w
+    # rows 2 above to 2 below the tile are one span of 12 * 1600 floats,
+    # after 52 (the 50-float halo before it, rounded to 16 bytes) and
+    # before 50 (the halo after it): 19,302 floats, 77,216 bytes aligned.
+    # g likewise: 8 + 12 * 192 + 6 floats, 9,280 bytes aligned; then the
+    # dX tile, 8 * 64 * 3 floats. A thread takes two rows of a column:
+    # 256 threads a block.
+    plan = tla.tile_plan_bwd_x((32, 64, 64, 3), 5, torch.float32)
+    assert tla.bwd_x_block(5, 3) == (2, 256)
+    assert (plan.rows, plan.cols) == (8, 64)
+    assert plan.grid == (1, 8, 32)
+    assert plan.smem == 77216 + 9280 + 8 * 64 * 3 * 4 == 92640
+    # A column strip keeps its halo columns in each row, 256 + 4 columns:
+    # (52 + 6 * 260 * 25 + 50) floats of w, 156,416 bytes aligned, and
+    # (8 + 6 * 260 * 3 + 6) of g, 18,784 aligned, for tiles of 2 rows.
+    strip = tla.tile_plan_bwd_x((1, 4, 2048, 3), 5, torch.float32)
+    assert (strip.rows, strip.cols, strip.grid) == (2, 256, (8, 2, 1))
+    assert strip.smem == 156416 + 18784 + 2 * 256 * 3 * 4
+
+
+@pytest.mark.parametrize("shape,k,dtype,edge", [
+    ((4, 67, 32, 3), 5, torch.float32, "ragged rows"),
+    ((1, 4, 2048, 3), 5, torch.float32, "column strips"),
+    ((2, 37, 13, 3), 5, torch.bfloat16, "unaligned spans"),
+])
+def test_gpu_cases_reach_the_bwd_x_tile_edges(shape, k, dtype, edge):
+    # The shapes of test_torch_gpu.py reach the same edges in dX's plan.
+    b, h, w, c = shape
+    plan = tla.tile_plan_bwd_x(shape, k, dtype)
+    if edge == "ragged rows":
+        assert h % plan.rows != 0
+    elif edge == "column strips":
+        assert plan.cols < w
+    else:
+        # Full-width dX spans start at (b*H + h0) * W*C elements, in bytes
+        # a multiple of 16 for some row tiles and not for others.
+        starts = {(i * h + h0) * w * c * 2 % 16
+                  for i in range(b) for h0 in range(0, h, plan.rows)}
+        assert plan.cols == w and 0 in starts and len(starts) > 1
