@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (pivp_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's CDNA prediction and training paths at full width (10
-masks, channel plans (32,32,64,64,128,96,64) / (32,32,64,64,128,64,32),
-64x64x3 frames, T=10, 2 context frames, use_state, float32 with TF32
-off, batch 32; training with scheduled sampling k=900 and Chainer Adam at
-lr 1e-3) with random weights and synthetic data made from --seed, in
-phases:
+Drives the port's prediction and training paths at full width (channel
+plans (32,32,64,64,128,96,64) / (32,32,64,64,128,64,32), 64x64x3 frames,
+T=10, 2 context frames, use_state, float32 with TF32 off, batch 32;
+training with scheduled sampling k=900 and Chainer Adam at lr 1e-3)
+with random weights and synthetic data made from --seed: the CDNA head
+(10 masks), then the DNA head (1 mask) and the STP head (10 masks, one
+shared affine projection, then one per mask), in phases:
 
   1. device   a CUDA device is required; prints its name and power limit
   2. build    compiles every CUDA kernel from pivp_tpu_torch/csrc
@@ -14,31 +15,43 @@ phases:
               PyTorch version on the card, at the main paths' shapes,
               with times (warm and cold, below) and bounds, and a device
               copy of the local-apply kernels' bytes as a yardstick
-  4. serve    seeded params -> save_npz -> load_model -> make_serve_fn,
-              --requests requests of batch 32; the launch counters must
-              show every forward kernel launched on that path; the
-              rollout with both kernel switches off, and a small batch on
-              the CPU, must agree with it
+  4. serve    CDNA: seeded params -> save_npz -> load_model (the run
+              directory names the head) -> make_serve_fn, --requests
+              requests of batch 32; the launch counters must show every
+              forward kernel launched on that path; the rollout with
+              both kernel switches off, and a small batch on the CPU,
+              must agree with it
   5. predict  predict_and_render on a synthetic processed-data dir
               renders the contact-sheet GIF
-  6. train    train_cli (in process) runs --train_steps iterations at
-              batch 32 on synthetic sequences, across an epoch boundary
-              with one validation sweep and one checkpoint; the launch
-              counters must show every kernel launched on that path, and
-              one train step must launch each local-apply kernel 9 times
-              and each gate kernel 63 times; one step's gradients
-              through the backward kernels must agree with the same
-              step through their plain versions, tensor by tensor
+  6. train    CDNA: train_cli (in process) runs --train_steps iterations
+              at batch 32 on synthetic sequences, across an epoch
+              boundary with one validation sweep and one checkpoint; the
+              launch counters must show every kernel launched on that
+              path, and one train step must launch each local-apply
+              kernel 9 times and each gate kernel 63 times; one step's
+              gradients through the backward kernels must agree with the
+              same step through their plain versions, tensor by tensor
               (within float32's own run-to-run change where that is
               larger), and with the plain ops' (at iterations 0 and
-              6000) and the CPU's (2 sequences) over the whole gradient
-              (see GRAD_TOL); the median time of a train step and one
-              profiled step
+              6000) over the whole gradient, and the card's gradient of
+              a 2-sequence step with the float64 gradient of that step
+              (see GRAD_TOL); the median time and peak device memory of
+              a train step and one profiled step
+  7. DNA      phases 4 and 6 for the DNA head (HEAD_REQUESTS requests,
+              the gradient checks at iteration 6000): its steps launch
+              the local-apply kernels as CDNA's do, 9/9/9/63/63 a step
+  8. STP      the same for the STP head: no local-apply launch, 63 of
+              each gate kernel a step; the plain and float64 steps that
+              the kernels' step is held to sample at its sampler cells
+  9. per-mask the same for STP with a projection per mask, reached
+              through the API: no npz round trip and no train_cli, whose
+              flags do not select it
 
-Any failure exits non-zero. The last lines are a `kernels` JSON line
-(the forward kernels' launches are the serve phase's, the backward
-kernels' the train phase's), the card's name and power limit, and
-`{"ok": true, "device": ...}`.
+Each phase prints its seconds. Any failure exits non-zero. The last
+lines are a `kernels` JSON line (the forward kernels' launches are the
+CDNA serve phase's, the backward kernels' the CDNA train phase's; the
+other heads' counts are on their own log lines), the card's name and
+power limit, and `{"ok": true, "device": ...}`.
 
 Each kernel is timed twice at the main path's shapes: warm (`ms`: 200
 calls on the same inputs, which stay in the 50 MB L2) and cold
@@ -72,6 +85,11 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
+# The heads driven, as ModelConfig fields over the defaults, and the
+# timed requests of the DNA and STP serve phases.
+HEADS = {"CDNA": {}, "DNA": dict(model_type="DNA", num_masks=1),
+         "STP": dict(model_type="STP")}
+HEAD_REQUESTS = 2
 # Main-path shapes at batch 32: the fused CDNA tap application, and the
 # ConvLSTM cells of one timestep as (count, H, W, C).
 BATCH = 32
@@ -89,13 +107,47 @@ STEPS, PREDICTED = 9, 8
 # rounding change: the plain ops run twice with cuDNN's default
 # (run-order dependent) algorithms show it, and each tensor's limit is
 # the larger of GRAD_TOL and twice that measured change. Two steps
-# through different forward arithmetic (kernels vs plain ops, card vs
-# CPU) are held to GRAD_TOL over the whole gradient, and each tensor is
-# reported: a unit whose pre-activation lies within float32 rounding of
-# zero takes the other side of its ReLU on one of them, which moves the
-# small gradients of the first stages by about GRAD_TOL, on either side
-# (the float64 distances are printed for such tensors).
+# through different forward arithmetic (kernels vs plain ops, the card
+# vs the float64 step) are held to GRAD_TOL over the whole gradient, and
+# each tensor is reported: a unit whose pre-activation lies within
+# float32 rounding of zero takes the other side of its ReLU on one of
+# them, which moves the small gradients of the first stages by about
+# GRAD_TOL, on either side (the float64 distances are printed for such
+# tensors). The STP sampler's derivative in theta is one-sided at
+# integer source coordinates: a cell (the floor of a coordinate) that
+# two forwards round to different sides switches that pixel's gradient
+# to its neighbour's difference. In a per-mask STP step the plain ops
+# take ~650 of the kernels' 21.2 M cells on the other side, which moved
+# the whole gradient by up to 6.8e-5 (more than 1e-4 in one run), and
+# 2.2e-6 to 1.1e-5 once the plain step took the kernels' cells
+# (tools/torch_grad_precision.py on the H100); so the plain and float64
+# steps of the kernels-vs-plain check sample at the kernels' cells. The
+# card is held to the float64 step, not to the CPU's float32 one, whose
+# own flips would fail a correct card; within GRAD_TOL, or twice the
+# CPU float32's distance from the float64 step where that is larger,
+# since a flip that both float32 devices take moves both (1.12e-4 on
+# each, in one of four STP states measured).
 GRAD_TOL = 1e-4
+# Frame agreement, max abs over [0, 1] frames, against the float64
+# rollout of the plain ops on the CPU. The STP warp reads the frame at
+# (W-1)/2 = 31.5 pixels per unit of theta, so across a sharp edge a
+# rounding change in theta moves a pixel about 30x as much, and the
+# fed-back frames carry it on: a float32 STP rollout lies 1e-4 to 5e-3
+# from float64 at b32, CDNA's and DNA's ~2e-6, on the card and on the
+# CPU alike (tools/torch_rollout_precision.py on the H100). Kernels vs
+# plain ops on the card: FRAME_TOL, or twice the plain ops' own distance
+# from float64 where that is larger (if the kernels are no further from
+# float64 than the plain ops, the triangle inequality keeps the two
+# within it). The card vs the CPU: each float32 rollout of the 32
+# sequences against the float64 one; the card's 90th percentile over
+# the sequences of each sequence's distance within FRAME_TOL, or twice
+# the CPU float32's 90th percentile where that is larger. Not the
+# maximum: in a few sequences STP's feedback makes every float32
+# rollout diverge (1.3e-3 to 5.3e-3 from float64 in one sequence of
+# seed 1), and there the card's kernels and the CPU differ by up to 4x
+# by chance; over all 32, the card's 90th percentile lay within 1.31x
+# the CPU's in every rollout measured.
+FRAME_TOL = 1e-4
 # The CUDA function that each counted kernel wrapper launches, in the
 # order of `_counted()` and of the `kernels` line.
 CUDA_NAMES = ("local_apply_fwd_kernel", "lstm_gates_fwd_kernel",
@@ -525,17 +577,25 @@ def rollout_flops(params, cfg, batch: int) -> float:
     """Operations (2 per multiply-add) of the convs, deconvs and dense
     layers of one feed-self rollout of T-1 steps, from the weight
     shapes: a conv is counted over its output grid, a transposed conv
-    over its input grid, a dense layer once per sample."""
+    over its input grid, a dense layer once per sample. (STP's sampler
+    products are not counted.)"""
     h, w = cfg.image_height, cfg.image_width
     r0, r1, r2, r3 = (h * w, h * w // 4, h * w // 16, h * w // 64)
     grid = {"enc0": r1, "enc1": r2, "enc2": r3, "enc3": r3, "enc4": r3,
             "enc5": r2, "enc6": r1, "lstm1": r1, "lstm2": r1, "lstm3": r2,
             "lstm4": r2, "lstm5": r3, "lstm6": r2, "lstm7": r1,
             "masks": r0, "head/enc7": r0, "state_pred": 1,
-            "head/cdna_kerns": 1}
+            "head/cdna_kerns": 1, "head/stp_input": 1,
+            "head/identity_params": 1}
     from pivp_tpu_torch.utils import weights
 
-    per_step = sum(2 * batch * grid[k[:-2]] * v.numel()
+    def grid_of(layer: str) -> int:
+        # A per-mask STP projection is keyed head/identity_params/<i>.
+        if layer.startswith("head/identity_params/"):
+            layer = "head/identity_params"
+        return grid[layer]
+
+    per_step = sum(2 * batch * grid_of(k[:-2]) * v.numel()
                    for k, v in weights.flatten(params).items()
                    if k.endswith("/w"))
     return per_step * (cfg.sequence_length - 1)
@@ -562,14 +622,16 @@ def read_counters() -> tuple:
 
 
 def check_counters(what: str, fwd_rollouts: int, bwd_rollouts: int = 0,
-                   steps: int = STEPS) -> tuple:
+                   steps: int = STEPS, local_apply: bool = True) -> tuple:
     """Each forward kernel launches once per rollout step, each backward
     kernel once per step of a differentiated rollout; the gate kernels
-    once per ConvLSTM cell of a step."""
+    once per ConvLSTM cell of a step. The local-apply kernels run in the
+    CDNA and DNA heads' steps (`local_apply`), not in STP's."""
     got = read_counters()
-    want = (fwd_rollouts * steps,
+    la = int(local_apply)
+    want = (la * fwd_rollouts * steps,
             fwd_rollouts * steps * GATE_LAUNCHES_PER_STEP,
-            bwd_rollouts * steps, bwd_rollouts * steps,
+            la * bwd_rollouts * steps, la * bwd_rollouts * steps,
             bwd_rollouts * steps * GATE_LAUNCHES_PER_STEP)
     names = [fn.__name__ for fn in _counted()]
     log(f"{what}: launches " + ", ".join(
@@ -579,93 +641,179 @@ def check_counters(what: str, fwd_rollouts: int, bwd_rollouts: int = 0,
     return got
 
 
-def serve_phase(args, card: str):
+def label(cfg) -> str:
+    """The head of `cfg` as the log lines name it."""
+    per_mask = cfg.is_stp and not cfg.stp_shared_params
+    return cfg.model_type + (" per-mask" if per_mask else "")
+
+
+def head_config(head: str):
+    from pivp_tpu_torch.config import ModelConfig
+
+    return ModelConfig(**HEADS[head])
+
+
+def run_name(head: str) -> str:
+    return f"00000000-000000-{head}-{BATCH}"
+
+
+def synthetic_batch(seed: int) -> tuple:
+    """(images, actions, states), time-major, on the card."""
     from pivp_tpu_torch.config import ModelConfig
     from pivp_tpu_torch.data import synthetic
+
+    cfg = ModelConfig()
+    arrays = synthetic.generate_sequences(
+        BATCH, cfg.sequence_length, cfg.image_height, cfg.image_width,
+        seed=seed)
+    return tuple(torch.as_tensor(a.swapaxes(0, 1).copy(), device="cuda")
+                 for a in arrays)
+
+
+def time_requests(serve, request, n: int) -> tuple:
+    """Seconds of each of `n` requests, each ended by a synchronize."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        frames = serve(*request)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, frames
+
+
+def float64_rollout(params, cfg, images, actions, states) -> torch.Tensor:
+    """The frames of the feed-self rollout through the plain ops in
+    float64, on the CPU."""
+    from pivp_tpu_torch.models import predictor
+
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64",
+                                lstm_gate_compute="compute",
+                                use_kernel=False, use_kernel_gates=False)
+    p64 = predictor.map_params(lambda p: p.detach().cpu().double(), params)
+    return predictor.predict(p64, cfg64, *(a.cpu().double() for a in (
+        images, actions, states)))["gen_images"]
+
+
+def check_rollouts(params, cfg, images, actions, states, frames) -> None:
+    """The feed-self rollout through the kernels against the same rollout
+    with both kernel switches off, on the same card; the served uint8
+    frames against it; and the card's rollout against the CPU's, each
+    held to the CPU's float64 rollout (see FRAME_TOL)."""
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.ops import transforms
+
+    ctx = cfg.context_frames
+    out_k = predictor.predict(params, cfg, images, actions, states)
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False,
+                                    use_kernel_gates=False)
+    out_p = predictor.predict(params, plain_cfg, images, actions, states)
+    gen_k, gen_p = out_k["gen_images"], out_p["gen_images"]
+    if not bool(torch.isfinite(gen_k).all()):
+        fail(f"{label(cfg)}: non-finite predicted frames")
+    d_serve = int((frames.int() - transforms.quantize_frames_u8(
+        gen_k[ctx - 1:]).int()).abs().max())
+    if d_serve > 1:
+        fail(f"{label(cfg)}: served frames differ from the predict "
+             f"rollout by {d_serve}")
+    # The CPU's rollouts, where the wrappers take the plain path.
+    cpu_params = predictor.map_params(lambda p: p.cpu(), params)
+    gen_c = predictor.predict(cpu_params, cfg, images.cpu(), actions.cpu(),
+                              states.cpu())["gen_images"].double()
+    gen_64 = float64_rollout(params, cfg, images, actions, states)
+    gen_k, gen_p = gen_k.cpu().double(), gen_p.cpu().double()
+
+    def per_sequence(a):
+        """Each sequence's max abs distance from the float64 rollout."""
+        return (a - gen_64).abs().amax(dim=(0, 2, 3, 4))
+
+    d_img = max_err(gen_k, gen_p)
+    e_k, e_p, e_c = (per_sequence(g) for g in (gen_k, gen_p, gen_c))
+    limit = max(FRAME_TOL, 2 * float(e_p.max()))
+    d_psnr = float((out_k["psnrs"] - out_p["psnrs"]).abs().max())
+    by_frame = [max_err(a, b) for a, b in zip(gen_k, gen_p)]
+    log(f"{label(cfg)}: kernels vs plain ops, b{images.shape[1]} rollout: "
+        f"max|dframe| {d_img:.3e} (tol {limit:.3e}), max|dPSNR| "
+        f"{d_psnr:.3e} dB (tol 0.01); from the float64 rollout: kernels "
+        f"{float(e_k.max()):.3e}, plain ops {float(e_p.max()):.3e}; "
+        f"max|dframe| by step " + " ".join(f"{e:.1e}" for e in by_frame)
+        + f"; PSNR {float(out_k['psnr_all']):.4f} dB summed, SSIM "
+        f"{float(out_k['ssim']):.5f}")
+    if not (d_img <= limit and d_psnr <= 0.01):
+        fail(f"{label(cfg)}: kernel rollout disagrees with the "
+             f"plain-op rollout")
+
+    q_k, q_c = float(e_k.quantile(0.9)), float(e_c.quantile(0.9))
+    limit = max(FRAME_TOL, 2 * q_c)
+    log(f"{label(cfg)}: card vs CPU, b{images.shape[1]}, each sequence's "
+        f"max|dframe| from the float64 rollout: 90th percentile card "
+        f"{q_k:.3e} (tol {limit:.3e}), CPU {q_c:.3e}; median card "
+        f"{float(e_k.median()):.3e}, CPU {float(e_c.median()):.3e}; max "
+        f"card {float(e_k.max()):.3e}, CPU {float(e_c.max()):.3e}; the "
+        f"card further in {int((e_k > e_c).sum())} of {e_k.numel()}; "
+        f"card vs CPU max|dframe| {max_err(gen_k, gen_c):.3e}")
+    if not q_k <= limit:
+        fail(f"{label(cfg)}: the card's rollout is further from float64 "
+             f"than the CPU's allows")
+
+
+def serve_phase(args, card: str, cfg, requests: int,
+                round_trip: bool = True) -> tuple:
+    """Seeded params of `cfg` (with `round_trip`: -> save_npz ->
+    load_model from a run directory that names the head) ->
+    make_serve_fn, `requests` timed requests at b32 with their launch
+    counts, one profiled request (CDNA's trace is written), and the
+    agreement checks."""
     from pivp_tpu_torch.inference import export
     from pivp_tpu_torch.inference import predict as predict_lib
     from pivp_tpu_torch.models import predictor
-    from pivp_tpu_torch.ops import transforms
     from pivp_tpu_torch.utils import checkpoint
 
-    cfg = ModelConfig()
+    head, cdna = label(cfg), cfg.is_cdna
     t, ctx = cfg.sequence_length, cfg.context_frames
     params = predictor.init_params(torch.Generator().manual_seed(args.seed),
                                    cfg, device="cuda")
-    run_dir = os.path.join(args.out, "models", args.run_name)
-    os.makedirs(run_dir, exist_ok=True)
-    ckpt = os.path.join(run_dir, "smoke-params.npz")
-    checkpoint.save_npz(ckpt, params)
-    cfg, params = predict_lib.load_model(
-        ckpt, "CDNA", cfg.num_masks, ctx, cfg.use_state,
-        image_height=cfg.image_height, image_width=cfg.image_width,
-        sequence_length=t, device="cuda")
-    if not (cfg.use_kernel and cfg.use_kernel_gates):
-        fail("the kernel switches are off by default")
+    if round_trip:
+        run_dir = os.path.join(args.out, "models", run_name(head))
+        os.makedirs(run_dir, exist_ok=True)
+        ckpt = os.path.join(run_dir, "smoke-params.npz")
+        checkpoint.save_npz(ckpt, params)
+        cfg, params = predict_lib.load_model(
+            ckpt, predict_lib.infer_model_type(run_dir), cfg.num_masks, ctx,
+            cfg.use_state, image_height=cfg.image_height,
+            image_width=cfg.image_width, sequence_length=t, device="cuda")
+        if not (cfg.use_kernel and cfg.use_kernel_gates):
+            fail("the kernel switches are off by default")
+        if cfg.model_type != head:
+            fail(f"load_model built a {cfg.model_type} model from {run_dir}")
+        if not cdna:
+            os.remove(ckpt)
 
-    images, actions, states = synthetic.generate_sequences(
-        BATCH, t, cfg.image_height, cfg.image_width, seed=args.seed)
-    images = torch.as_tensor(images.swapaxes(0, 1).copy(), device="cuda")
-    actions = torch.as_tensor(actions.swapaxes(0, 1).copy(), device="cuda")
-    states = torch.as_tensor(states.swapaxes(0, 1).copy(), device="cuda")
+    images, actions, states = synthetic_batch(args.seed)
     serve = export.make_serve_fn(params, cfg)
     request = (images[:ctx], actions[:t - 1], states[0])
     serve(*request)                                   # warm-up
     torch.cuda.synchronize()
 
     reset_counters()
-    times = []
-    for _ in range(args.requests):
-        t0 = time.perf_counter()
-        frames = serve(*request)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = check_counters(f"serve ({args.requests} requests)",
-                              args.requests)
-    profile_request(serve, request, os.path.join(args.out, "serve_trace.json"))
+    times, frames = time_requests(serve, request, requests)
+    launches = check_counters(f"{head} serve ({requests} requests)",
+                              requests, local_apply=not cfg.is_stp)
+    profile_request(serve, request,
+                    os.path.join(args.out, "serve_trace.json")
+                    if cdna else None, what=f"{head} request")
     if frames.shape != (t - ctx, BATCH, cfg.image_height, cfg.image_width,
                         cfg.color_channels) or frames.dtype != torch.uint8:
-        fail(f"serve output {tuple(frames.shape)} {frames.dtype}")
+        fail(f"{head} serve output {tuple(frames.shape)} {frames.dtype}")
     ms = [x * 1e3 for x in times]
     n_frames = (t - ctx) * BATCH
-    log(f"serve b{BATCH}: ms/request {ms} (median {np.median(ms):.3f}); "
-        f"predicted frames/s {n_frames / np.median(times):.1f} on {card}")
+    log(f"{head} serve b{BATCH}: ms/request {ms} (median "
+        f"{np.median(ms):.3f}); predicted frames/s "
+        f"{n_frames / np.median(times):.1f} on {card}")
     flops = rollout_flops(params, cfg, BATCH)
-    log(f"serve b{BATCH}: convs, deconvs and dense layers "
+    log(f"{head} serve b{BATCH}: convs, deconvs and dense layers "
         f"{flops / 1e9:.1f} GFLOP per request, "
         f"{flops / PEAK_F32_OPS_PER_S * 1e3:.2f} ms at the float32 peak")
-
-    # The same rollout with both kernel switches off, on the same card.
-    out_k = predictor.predict(params, cfg, images, actions, states)
-    plain_cfg = dataclasses.replace(cfg, use_kernel=False,
-                                    use_kernel_gates=False)
-    out_p = predictor.predict(params, plain_cfg, images, actions, states)
-    torch.cuda.synchronize()
-    gen_k, gen_p = out_k["gen_images"], out_p["gen_images"]
-    if not bool(torch.isfinite(gen_k).all()):
-        fail("non-finite predicted frames")
-    d_img = max_err(gen_k, gen_p)
-    d_psnr = float((out_k["psnrs"] - out_p["psnrs"]).abs().max())
-    log(f"kernels vs plain ops, b{BATCH} rollout: max|dframe| {d_img:.3e} "
-        f"(tol 1e-4), max|dPSNR| {d_psnr:.3e} dB (tol 0.01); PSNR "
-        f"{float(out_k['psnr_all']):.4f} dB summed, SSIM "
-        f"{float(out_k['ssim']):.5f}")
-    if not (d_img <= 1e-4 and d_psnr <= 0.01):
-        fail("kernel rollout disagrees with the plain-op rollout")
-    d_serve = int((frames.int() - transforms.quantize_frames_u8(
-        gen_k[ctx - 1:]).int()).abs().max())
-    if d_serve > 1:
-        fail(f"served frames differ from the predict rollout by {d_serve}")
-
-    # A small batch on the CPU, where the wrappers take the plain path.
-    cpu = lambda x: x[:, :2].cpu()  # noqa: E731
-    cpu_params = predictor.map_params(lambda p: p.cpu(), params)
-    out_c = predictor.predict(cpu_params, cfg, cpu(images), cpu(actions),
-                              cpu(states))
-    d_cpu = max_err(gen_k[:, :2].cpu(), out_c["gen_images"])
-    log(f"card vs CPU, 2 sequences: max|dframe| {d_cpu:.3e} (tol 1e-4)")
-    if not d_cpu <= 1e-4:
-        fail("the card's rollout disagrees with the CPU's")
+    check_rollouts(params, cfg, images, actions, states, frames)
     return launches
 
 
@@ -677,7 +825,7 @@ def predict_phase(args) -> None:
     synthetic.write_processed_dir(data_dir, 2, 10, 64, 64, seed=args.seed)
     reset_counters()
     path = predict_lib.predict_and_render(
-        args.run_name, "smoke-params.npz", 0,
+        run_name("CDNA"), "smoke-params.npz", 0,
         models_dir=os.path.join(args.out, "models"), data_dir=data_dir,
         time_step=8, downscale_factor=0.25, device="cuda")
     torch.cuda.synchronize()
@@ -732,11 +880,42 @@ def plain_backward():
          lg.fused_lstm_gates_bwd) = saved
 
 
+@contextlib.contextmanager
+def sampler_cells(cells: list, replay: bool = False):
+    """The STP samplers' cells (floor of each source coordinate, in call
+    order): recorded into `cells`, or with `replay` taken from `cells`
+    in place of the path's own. Yields a list that collects, per call,
+    how many of the replayed cells differ from the path's own."""
+    from pivp_tpu_torch.ops import transforms
+
+    own_cell, moved = transforms._cell, []
+    source = iter(cells) if replay else None
+
+    def cell(coord):
+        own = own_cell(coord)
+        if not replay:
+            cells.append(own.detach())
+            return own
+        took = next(source).to(own)
+        moved.append((took != own).sum())
+        return took
+
+    transforms._cell = cell
+    try:
+        yield moved
+    finally:
+        transforms._cell = own_cell
+
+
+def count(moved: list) -> int:
+    return int(sum(int(m) for m in moved))
+
+
 def check_grads(what: str, keys, got, want, noise=None,
-                exact=None) -> None:
+                exact=None, limit: float = GRAD_TOL) -> None:
     """`got` against `want`. With `noise` (each tensor's run-to-run
     change), every tensor within the larger of GRAD_TOL and twice its
-    noise; without it, the whole gradient within GRAD_TOL. The tensors
+    noise; without it, the whole gradient within `limit`. The tensors
     beyond GRAD_TOL are listed, with both sides' distance from `exact`
     (the float64 gradient of the plain ops) when it is given."""
     diffs, whole = norms_of_difference(keys, got, want)
@@ -752,14 +931,16 @@ def check_grads(what: str, keys, got, want, noise=None,
             note += (f" (vs float64: {rel_frobenius(got[i], exact[i]):.3e}"
                      f", other side {rel_frobenius(want[i], exact[i]):.3e})")
         notes.append(note)
-    log(f"{what}: whole gradient {whole:.3e}, worst tensor {worst} "
+    log(f"{what}: whole gradient {whole:.3e}"
+        + ("" if noise is not None else f" (tol {limit:.3e})")
+        + f", worst tensor {worst} "
         f"{diffs[worst]:.3e}; {len(keys) - len(beyond)} of {len(keys)} "
         f"tensors within {GRAD_TOL:g}"
         + ("; beyond it: " + "; ".join(notes) if notes else ""))
     if noise is not None:
         bad = [k for k in beyond if diffs[k] > 2 * noise[k]]
     else:
-        bad = ["whole gradient"] if whole > GRAD_TOL else []
+        bad = ["whole gradient"] if whole > limit else []
     if bad:
         fail(f"{what}: {bad} disagree beyond the limit")
 
@@ -777,21 +958,116 @@ def grads_float64(ts, predictor, sampling, params, cfg, batch, it, seed):
     return grads
 
 
-def train_phase(args, card: str) -> tuple:
-    from pivp_tpu_torch.config import ModelConfig
-    from pivp_tpu_torch.data import synthetic
+def check_step_grads(state_params, cfg, batch, seed: int,
+                     iterations) -> None:
+    """One step's gradients at each of `iterations`: the backward kernels
+    against their plain versions on the same forward, tensor by tensor
+    (within twice the plain ops' own run-to-run change where that is
+    larger than GRAD_TOL), and the kernels against the plain ops over
+    the whole gradient, with the float64 distances of the tensors beyond
+    GRAD_TOL. The plain and float64 steps sample at the kernels' STP
+    sampler cells (see GRAD_TOL); the plain step on its own cells is
+    printed, not gated."""
     from pivp_tpu_torch.models import predictor
     from pivp_tpu_torch.ops import sampling
     from pivp_tpu_torch.parallel import train_step as ts
-    from pivp_tpu_torch.training import train_cli
     from pivp_tpu_torch.utils import weights
 
-    # The training CLI in process: 80 synthetic sequences split 64 / 16,
-    # so the second batch of 32 closes epoch 1 (and no later one does
-    # before step 4), which runs one validation sweep (one batch, 16
-    # sequences padded to 32) and saves checkpoint 1; then the final one.
-    # The run directory (~120 MB of npz at full width) is checked, then
-    # deleted.
+    keys = list(weights.flatten(state_params))
+    plain_cfg = dataclasses.replace(cfg, use_kernel=False,
+                                    use_kernel_gates=False)
+    head = label(cfg)
+    for it in iterations:
+        n_gt = sampling.num_ground_truth(BATCH, cfg.scheduled_sampling_k, it)
+
+        def grads(c):
+            return ts.grads_and_metrics(state_params, c, batch, it,
+                                        sampling.generator(seed, it))
+
+        noise, whole_noise = norms_of_difference(
+            keys, grads(plain_cfg)[0], grads(plain_cfg)[0])
+        worst = max(noise, key=noise.get)
+        log(f"{head} iteration {it}: the plain ops run twice with cuDNN's "
+            f"default algorithms differ by up to {noise[worst]:.3e} "
+            f"({worst}), {whole_noise:.3e} over the whole gradient")
+        with deterministic_cudnn():
+            cells = []
+            with sampler_cells(cells):
+                g_k, m_k = grads(cfg)
+            with plain_backward():
+                g_b, _ = grads(cfg)
+            with sampler_cells(cells, replay=True) as moved:
+                g_p, m_p = grads(plain_cfg)
+            with sampler_cells(cells, replay=True):
+                g_64 = grads_float64(ts, predictor, sampling, state_params,
+                                     cfg, batch, it, seed)
+            if cells:
+                g_own, _ = grads(plain_cfg)
+        log(f"{head} iteration {it} (n_gt {n_gt} of {BATCH}): loss kernels "
+            f"{float(m_k['loss']):.8f}, plain {float(m_p['loss']):.8f}")
+        if cells:
+            _, whole_own = norms_of_difference(keys, g_k, g_own)
+            log(f"{head} iteration {it}: the plain ops' own sampler cells "
+                f"differ from the kernels' in {count(moved)} of "
+                f"{sum(c.numel() for c in cells)}; on their own cells, "
+                f"kernels vs plain ops {whole_own:.3e} over the whole "
+                f"gradient (not gated)")
+        check_grads(f"{head} b{BATCH} train step at iteration {it}, "
+                    f"backward kernels vs their plain versions", keys, g_k,
+                    g_b, noise=noise)
+        check_grads(f"{head} b{BATCH} train step at iteration {it}, "
+                    f"kernels vs plain ops" + (" on the kernels' sampler "
+                                              "cells" if cells else ""),
+                    keys, g_k, g_p, exact=g_64)
+
+
+def check_card_vs_float64(state_params, cfg, batch, seed: int) -> None:
+    """The card's float32 gradient of a 2-sequence step at iteration 6000
+    against the float64 gradient of the same step (the plain ops on the
+    CPU), over the whole gradient within GRAD_TOL, or twice the CPU
+    float32's own distance from it where that is larger: a unit within
+    float32 rounding of zero can take the other side of its ReLU on
+    either float32 device, or on both, and the float64 step says which
+    did (see GRAD_TOL)."""
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+    from pivp_tpu_torch.utils import weights
+
+    keys = list(weights.flatten(state_params))
+    it = 6000
+    two = tuple(a[:, :2].cpu() for a in batch)
+    cpu_params = predictor.map_params(
+        lambda p: p.detach().cpu().requires_grad_(), state_params)
+    with deterministic_cudnn():
+        g_d, _ = ts.grads_and_metrics(state_params, cfg,
+                                      tuple(a.to(batch[0].device)
+                                            for a in two), it,
+                                      sampling.generator(seed, it))
+    g_c, _ = ts.grads_and_metrics(cpu_params, cfg, two, it,
+                                  sampling.generator(seed, it))
+    g_64 = grads_float64(ts, predictor, sampling, cpu_params, cfg, two, it,
+                         seed)
+    cpu_diffs, cpu_whole = norms_of_difference(keys, g_c, g_64)
+    worst = max(cpu_diffs, key=cpu_diffs.get)
+    log(f"{label(cfg)} train step at iteration {it}, 2 sequences, the "
+        f"CPU's float32 vs float64: whole gradient {cpu_whole:.3e}, worst "
+        f"tensor {worst} {cpu_diffs[worst]:.3e}")
+    check_grads(f"{label(cfg)} train step at iteration {it}, 2 "
+                f"sequences, card vs float64", keys, g_d, g_64,
+                limit=max(GRAD_TOL, 2 * cpu_whole))
+
+
+def train_cli_phase(args, cfg) -> tuple:
+    """The training CLI in process: 80 synthetic sequences split 64 / 16,
+    so the second batch of 32 closes epoch 1 (and no later one does
+    before step 4), which runs one validation sweep (one batch, 16
+    sequences padded to 32) and saves checkpoint 1; then the final one.
+    The run directory (~120 MB of npz at full width) is checked, then
+    deleted."""
+    from pivp_tpu_torch.training import train_cli
+
+    head = cfg.model_type
     models = tempfile.mkdtemp(dir=args.out, prefix="train-")
     reset_counters()
     t0 = time.perf_counter()
@@ -800,14 +1076,17 @@ def train_phase(args, card: str) -> tuple:
         "--num_iterations", str(args.train_steps), "--batch_size",
         str(BATCH), "--validation_interval", "1", "--save_interval", "1",
         "--seed", str(args.seed), "--output_dir", models,
-        "--event_log_dir", models, "--run_name", args.run_name,
+        "--event_log_dir", models, "--run_name", run_name(head),
+        "--model_type", head, "--num_masks", str(cfg.num_masks),
         "--device", "cuda"], standalone_mode=False)
     torch.cuda.synchronize()
-    log(f"train_cli: {args.train_steps} steps, 1 validation sweep, 2 "
-        f"checkpoints in {time.perf_counter() - t0:.1f} s")
+    log(f"{head} train_cli: {args.train_steps} steps, 1 validation sweep, "
+        f"2 checkpoints in {time.perf_counter() - t0:.1f} s")
     launches = check_counters(
-        f"train_cli ({args.train_steps} steps + 1 validation batch)",
-        args.train_steps + 1, args.train_steps)
+        f"{head} train_cli ({args.train_steps} steps + 1 validation batch)",
+        args.train_steps + 1, args.train_steps, local_apply=not cfg.is_stp)
+    if result["model_config"].model_type != head:
+        fail(f"train_cli trained {result['model_config'].model_type}")
     save_dir = result["save_dir"]
     for name in ("training-1.npz", "state-1.npz", "training-final.npz",
                  "state-final.npz", "training-global_losses.npy",
@@ -820,20 +1099,28 @@ def train_phase(args, card: str) -> tuple:
               for n in ("losses", "psnr_all", "losses_valid",
                         "psnr_all_valid")]
     if not all(c.shape == (1, 5) and np.isfinite(c).all() for c in curves):
-        fail(f"train_cli curves {[c.tolist() for c in curves]}")
-    log(f"train_cli epoch 1: train loss [mean,std,min,max,median] "
+        fail(f"{head} train_cli curves {[c.tolist() for c in curves]}")
+    log(f"{head} train_cli epoch 1: train loss [mean,std,min,max,median] "
         f"{curves[0][0].tolist()}, validation loss {curves[2][0, 0]:.6f}, "
         f"validation PSNR {curves[3][0, 0]:.4f} dB (summed over the "
         f"predicted frames)")
     shutil.rmtree(models)
+    return launches
 
-    # One train step at a time on a fixed batch.
-    cfg = ModelConfig()
-    images, actions, states = synthetic.generate_sequences(
-        BATCH, cfg.sequence_length, cfg.image_height, cfg.image_width,
-        seed=args.seed + 1)
-    batch = tuple(torch.as_tensor(a.swapaxes(0, 1).copy(), device="cuda")
-                  for a in (images, actions, states))
+
+def train_phase(args, card: str, cfg, iterations, cli: bool = True):
+    """train_cli (with `cli`), then train steps one at a time on a fixed
+    batch: the launches and peak device memory of one step, the median
+    of --timed_steps steps, one profiled step, and the gradient checks
+    at each of `iterations` and of the card against float64. Returns
+    train_cli's launch counts (None without `cli`)."""
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    head = label(cfg)
+    launches = train_cli_phase(args, cfg) if cli else None
+    batch = synthetic_batch(args.seed + 1)
     params = predictor.init_params(torch.Generator().manual_seed(args.seed),
                                    cfg, device="cuda")
     state = ts.create_train_state(params, ts.make_optimizer(1e-3))
@@ -842,12 +1129,15 @@ def train_phase(args, card: str) -> tuple:
     for it in range(2):                                   # warm-up
         step(state, batch, it, sampling.generator(seed, it))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
     _, metrics = step(state, batch, 2, sampling.generator(seed, 2))
     torch.cuda.synchronize()
-    check_counters("one train step", 1, 1)
+    peak = torch.cuda.max_memory_allocated()
+    check_counters(f"{head} one train step", 1, 1,
+                   local_apply=not cfg.is_stp)
     if not bool(torch.isfinite(metrics["loss"])):
-        fail(f"non-finite training loss {float(metrics['loss'])}")
+        fail(f"{head}: non-finite training loss {float(metrics['loss'])}")
     times = []
     for it in range(3, 3 + args.timed_steps):
         t0 = time.perf_counter()
@@ -855,62 +1145,20 @@ def train_phase(args, card: str) -> tuple:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     ms = [x * 1e3 for x in times]
-    log(f"train b{BATCH}: ms/step {ms} (median {np.median(ms):.3f}); "
-        f"training frames/s {BATCH * PREDICTED / np.median(times):.1f} on "
-        f"{card}")
+    log(f"{head} train b{BATCH}: ms/step {ms} (median {np.median(ms):.3f}); "
+        f"training frames/s {BATCH * PREDICTED / np.median(times):.1f}; "
+        f"peak device memory of a step {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated) on {card}")
     flops = 3 * rollout_flops(state.params, cfg, BATCH)
-    log(f"train b{BATCH}: convs, deconvs and dense layers about "
+    log(f"{head} train b{BATCH}: convs, deconvs and dense layers about "
         f"{flops / 1e9:.1f} GFLOP per step (3x the forward's), "
         f"{flops / PEAK_F32_OPS_PER_S * 1e3:.2f} ms at the float32 peak")
     it = 3 + args.timed_steps
     profile_request(lambda: step(state, batch, it,
                                  sampling.generator(seed, it)),
-                    (), None, what="train step")
-
-    # One step's gradients: kernels on vs off, card vs CPU.
-    keys = list(weights.flatten(state.params))
-    plain_cfg = dataclasses.replace(cfg, use_kernel=False,
-                                    use_kernel_gates=False)
-    for it in (0, 6000):
-        n_gt = sampling.num_ground_truth(BATCH, cfg.scheduled_sampling_k, it)
-
-        def grads(c):
-            return ts.grads_and_metrics(state.params, c, batch, it,
-                                        sampling.generator(seed, it))
-
-        noise, _ = norms_of_difference(keys, grads(plain_cfg)[0],
-                                       grads(plain_cfg)[0])
-        worst = max(noise, key=noise.get)
-        log(f"iteration {it}: the plain ops run twice with cuDNN's default "
-            f"algorithms differ by up to {noise[worst]:.3e} ({worst})")
-        with deterministic_cudnn():
-            g_k, m_k = grads(cfg)
-            with plain_backward():
-                g_b, _ = grads(cfg)
-            g_p, m_p = grads(plain_cfg)
-            g_64 = grads_float64(ts, predictor, sampling, state.params, cfg,
-                                 batch, it, seed)
-        log(f"iteration {it} (n_gt {n_gt} of {BATCH}): loss kernels "
-            f"{float(m_k['loss']):.8f}, plain {float(m_p['loss']):.8f}")
-        check_grads(f"b{BATCH} train step at iteration {it}, backward "
-                    f"kernels vs their plain versions", keys, g_k, g_b,
-                    noise=noise)
-        check_grads(f"b{BATCH} train step at iteration {it}, kernels vs "
-                    f"plain ops", keys, g_k, g_p, exact=g_64)
-    two = tuple(a[:, :2].cpu() for a in batch)
-    cpu_params = predictor.map_params(
-        lambda p: p.detach().cpu().requires_grad_(), state.params)
-    with deterministic_cudnn():
-        g_d, _ = ts.grads_and_metrics(state.params, cfg,
-                                      tuple(a.to(batch[0].device)
-                                            for a in two), 6000,
-                                      sampling.generator(seed, 6000))
-    g_c, _ = ts.grads_and_metrics(cpu_params, cfg, two, 6000,
-                                  sampling.generator(seed, 6000))
-    g_64 = grads_float64(ts, predictor, sampling, cpu_params, cfg, two,
-                         6000, seed)
-    check_grads("train step at iteration 6000, 2 sequences, card vs CPU",
-                keys, g_d, g_c, exact=g_64)
+                    (), None, what=f"{head} train step")
+    check_step_grads(state.params, cfg, batch, seed, iterations)
+    check_card_vs_float64(state.params, cfg, batch, seed)
     return launches
 
 
@@ -927,12 +1175,19 @@ def main() -> None:
                     help="comma-separated tile heights: after phase 3, "
                     "time dX at the main shape with each")
     args = ap.parse_args()
-    args.run_name = "00000000-000000-CDNA-32"
     if args.requests < 1:
         fail("--requests must be at least 1")
     if not 2 <= args.train_steps <= 3 or args.timed_steps < 5:
         fail("--train_steps must be 2 or 3 (the second step closes the "
              "one epoch) and --timed_steps at least 5")
+    phase_t0 = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal phase_t0
+        now = time.perf_counter()
+        log(f"phase {name}: {now - phase_t0:.1f} s")
+        torch.cuda.empty_cache()
+        phase_t0 = now
 
     # 1. device
     if not torch.cuda.is_available():
@@ -944,12 +1199,14 @@ def main() -> None:
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase_done("1 device")
 
     # 2. build
     _, info = build.load(force_build=True)
     log(f"build: {info.path.name} in {info.seconds:.1f} s")
     for line in info.ptxas:
         log(f"  ptxas {line}")
+    phase_done("2 build")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -957,22 +1214,40 @@ def main() -> None:
                + check_local_apply_bwd(gen) + [check_lstm_gates_bwd(gen)])
     if args.bwd_x_rows:
         sweep_bwd_x(gen, [int(r) for r in args.bwd_x_rows.split(",")])
+    phase_done("3 kernels")
     if args.kernels_only:
         log(card)
         return
 
     # 4. the prediction path, served
-    launches = serve_phase(args, card)
+    launches = serve_phase(args, card, head_config("CDNA"), args.requests)
     for k, n in zip(kernels[:2], launches[:2]):
         k["launches"] = n
+    phase_done("4 serve")
 
     # 5. the predict CLI path
     predict_phase(args)
+    phase_done("5 predict")
 
     # 6. the training path
-    launches = train_phase(args, card)
+    launches = train_phase(args, card, head_config("CDNA"), (0, 6000))
     for k, n in zip(kernels[2:], launches[2:]):
         k["launches"] = n
+    phase_done("6 train")
+
+    # 7, 8. the DNA and STP heads, served and trained
+    for number, head in (("7", "DNA"), ("8", "STP")):
+        serve_phase(args, card, head_config(head), HEAD_REQUESTS)
+        train_phase(args, card, head_config(head), (6000,))
+        phase_done(f"{number} {head}")
+
+    # 9. STP with a projection per mask, through the API (no flag of
+    # train_cli or load_model selects it, as in the JAX package)
+    per_mask = dataclasses.replace(head_config("STP"),
+                                   stp_shared_params=False)
+    serve_phase(args, card, per_mask, HEAD_REQUESTS, round_trip=False)
+    train_phase(args, card, per_mask, (6000,), cli=False)
+    phase_done("9 STP per-mask")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",

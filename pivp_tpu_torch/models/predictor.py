@@ -1,11 +1,13 @@
-"""Action/state-conditioned ConvLSTM video predictor, CDNA head.
+"""Action/state-conditioned ConvLSTM video predictor (CDNA / DNA / STP).
 
 Counterpart of `pivp_tpu/models/predictor.py`: the 7-stage trunk (convs,
 ConvLSTMs, flattened LayerNorms, state/action smear, skip connections),
-the CDNA head and the mask compositor, run as a Python loop over
-timesteps: the feed-self rollout (`train=False`, the predict and serving
-path) and the scheduled-sampling rollout of training (`train=True`). The
-DNA and STP heads come with a later slice.
+the transformation head (models/heads.py) and the mask compositor, run
+as a Python loop over timesteps: the feed-self rollout (`train=False`,
+the predict and serving path) and the scheduled-sampling rollout of
+training (`train=True`). CDNA takes the fused composite when
+`fused_cdna` is on; the other heads, and CDNA with it off, composite
+their candidate stack.
 
 Parameters are a nested dict of tensors with the JAX package's keys and
 PyTorch's weight layouts (ops/layers.py); utils/weights.py maps them
@@ -38,19 +40,10 @@ def hidden5_dim(cfg: ModelConfig) -> int:
     return h8 * w8 * cfg.lstm_channels[4]
 
 
-def _require_cdna(cfg: ModelConfig) -> None:
-    if not cfg.is_cdna:
-        raise NotImplementedError(
-            f"the {cfg.model_type} head is not ported yet: it comes with "
-            "the DNA/STP head slice of the port, which so far covers the "
-            "CDNA head")
-
-
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device="cuda") -> Params:
     """Build the parameter dict (float32, Glorot-uniform weights drawn
     from `generator` on the CPU, then moved to `device`)."""
-    _require_cdna(cfg)
     dev = resolve_device(device)
     g = generator
     (r0, r1, r2, r3) = _resolutions(cfg)
@@ -86,8 +79,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         "hidden7": layers.layer_norm_flat_init((*r1, lc[6])),
         "masks": layers.deconv2d_init(g, ec[6], cfg.num_masks + 1, 1),
         "state_pred": layers.dense_init(g, sa_dim, cfg.state_dim),
-        "head": heads.cdna_head_init(g, cfg, hidden5_dim(cfg)),
     }
+    head_init, _ = heads.HEADS[cfg.model_type]
+    params["head"] = head_init(g, cfg, hidden5_dim(cfg))
     return map_params(lambda t: t.to(dev), params)
 
 
@@ -109,11 +103,16 @@ def init_lstm_states(cfg: ModelConfig, batch: int, dtype=torch.float32,
 class StepOutput(NamedTuple):
     gen_image: torch.Tensor                     # (B, H, W, C)
     gen_state: torch.Tensor                     # (B, state_dim)
+    # (enc0, ..., enc6, enc7) with `capture`, else None.
+    encs: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def forward_step(params: Params, cfg: ModelConfig, lstm_states,
-                 prev_image: torch.Tensor, state_action: torch.Tensor):
-    """Run the trunk + head + compositor for one timestep."""
+                 prev_image: torch.Tensor, state_action: torch.Tensor,
+                 capture: bool = False):
+    """Run the trunk + head + compositor for one timestep. `capture`
+    also returns the stage activations enc0..enc7 (enc7 is the head's:
+    relu of its deconv for CDNA and DNA, the raw deconv for STP)."""
     relu = torch.relu
     fb = cfg.forget_bias
     gd = torch.float32 if cfg.lstm_gate_compute == "float32" else cfg.dtype
@@ -187,16 +186,18 @@ def forward_step(params: Params, cfg: ModelConfig, lstm_states,
     else:
         mask_logits = layers.deconv2d(params["masks"], enc6, stride=1,
                                       padding=0)
-    if cfg.fused_cdna:
-        synth, kerns, _ = heads.cdna_head_parts(
+    if cfg.is_cdna and cfg.fused_cdna:
+        synth, kerns, enc7 = heads.cdna_head_parts(
             params["head"], cfg, enc6, h5, enc7_raw)
         local = local_apply.local_kernel_apply if cfg.use_kernel else None
         gen_image = transforms.fused_cdna_composite(
             prev_image, synth, kerns, mask_logits, local_apply=local,
             scramble=cfg.chainer_mask_scramble)
     else:
-        candidates, _ = heads.cdna_head(params["head"], cfg, enc6, h5,
-                                           prev_image, enc7_raw)
+        # The candidate stack; the compositor keeps the first num_masks.
+        _, head_fn = heads.HEADS[cfg.model_type]
+        candidates, enc7 = head_fn(params["head"], cfg, enc6, h5,
+                                   prev_image, enc7_raw)
         gen_image, _ = transforms.mask_composite(
             prev_image, candidates[:, :cfg.num_masks], mask_logits,
             scramble=cfg.chainer_mask_scramble)
@@ -208,14 +209,16 @@ def forward_step(params: Params, cfg: ModelConfig, lstm_states,
                                             torch.float32)))
 
     new_states = (s1, s2, s3, s4, s5, s6, s7)
-    return new_states, StepOutput(gen_image, gen_state)
+    encs = ((enc0, enc1, enc2, enc3, enc4, enc5, enc6, enc7) if capture
+            else None)
+    return new_states, StepOutput(gen_image, gen_state, encs)
 
 
 def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
                    actions: torch.Tensor, states: torch.Tensor, *,
                    n_ground_truth: int = 0,
                    uniforms: Optional[torch.Tensor] = None,
-                   remat: bool = False):
+                   remat: bool = False, capture: bool = False):
     """The prediction loop: ground truth for the first context_frames
     steps, then the model's own predictions, or, with `uniforms`
     ((T-1, B), one row per step), a scheduled-sampling mix of exactly
@@ -225,8 +228,8 @@ def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
     actions/states: (T, B, 5). `remat` recomputes each step's
     activations in the backward (torch.utils.checkpoint). Returns
     (gen_images (T-1, B, H, W, C) in the compute dtype, gen_states
-    (T-1, B, S))."""
-    _require_cdna(cfg)
+    (T-1, B, S)), and with `capture` a third element: the stage
+    activations enc0..enc7, each stacked over the steps (T-1, B, ...)."""
     batch = images.shape[1]
     dtype = cfg.dtype
     sdt = torch.promote_types(torch.float32, dtype)
@@ -238,16 +241,16 @@ def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
             lambda p: p.to(dtype) if p.dtype == torch.float32 else p,
             params)
 
-    step = forward_step
-    if remat:
-        def step(*args):
+    def step(*args):
+        if remat:
             return torch.utils.checkpoint.checkpoint(
-                forward_step, *args, use_reentrant=False)
+                forward_step, *args, capture=capture, use_reentrant=False)
+        return forward_step(*args, capture=capture)
 
     lstm_states = init_lstm_states(cfg, batch, dtype, images.device)
     prev_gen = torch.zeros_like(images_c[0])
     current_state = states[0].to(sdt)
-    gen_images, gen_states = [], []
+    gen_images, gen_states, encs = [], [], []
     for t in range(images.shape[0] - 1):
         if t < cfg.context_frames:
             prev_image = images_c[t]
@@ -264,6 +267,10 @@ def rollout_frames(params: Params, cfg: ModelConfig, images: torch.Tensor,
         prev_gen, current_state = out.gen_image, out.gen_state
         gen_images.append(out.gen_image)
         gen_states.append(out.gen_state)
+        encs.append(out.encs)
+    if capture:
+        return (torch.stack(gen_images), torch.stack(gen_states),
+                tuple(torch.stack(e) for e in zip(*encs)))
     return torch.stack(gen_images), torch.stack(gen_states)
 
 
@@ -271,7 +278,7 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
             actions: torch.Tensor, states: torch.Tensor, *,
             train: bool = False, iter_num: int = 0,
             generator: Optional[torch.Generator] = None,
-            remat: bool = False,
+            remat: bool = False, capture: bool = False,
             keys: Optional[Sequence[str]] = None
             ) -> Dict[str, torch.Tensor]:
     """Run the full T-step prediction and compute losses and metrics.
@@ -287,7 +294,9 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
     psnr_per_image, ssim and the (T-ctx, B) matrices, in float32 (float64
     for a float64 model). `keys` limits it to those entries and computes
     only what they need, as XLA drops what a jitted step does not
-    return."""
+    return. `capture` adds `conv_res` (the last step's enc0..enc7, as
+    the reference's Model.conv_res) and `conv_res_all` (every step's,
+    each (T-1, B, ...))."""
     t_total, batch = images.shape[0], images.shape[1]
     n_gt, uniforms = 0, None
     if train and cfg.scheduled_sampling_k != -1:
@@ -297,9 +306,10 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
             generator = torch.Generator().manual_seed(0)
         uniforms = to_device(torch.rand((t_total - 1, batch),
                                         generator=generator), images.device)
-    gen_images, gen_states = rollout_frames(
+    frames = rollout_frames(
         params, cfg, images, actions, states, n_ground_truth=n_gt,
-        uniforms=uniforms, remat=remat)
+        uniforms=uniforms, remat=remat, capture=capture)
+    gen_images, gen_states = frames[:2]
 
     sdt = torch.promote_types(torch.float32, cfg.dtype)
     if not images.is_floating_point():
@@ -353,7 +363,11 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
             done[key] = entries[key]()
         return done[key]
 
-    return {k: out(k) for k in (entries if keys is None else keys)}
+    result = {k: out(k) for k in (entries if keys is None else keys)}
+    if capture:
+        result["conv_res"] = tuple(e[-1] for e in frames[2])
+        result["conv_res_all"] = frames[2]
+    return result
 
 
 @torch.inference_mode()

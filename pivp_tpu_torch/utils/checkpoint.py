@@ -5,9 +5,11 @@ Counterpart of the npz and run-directory parts of
 `pivp_tpu/utils/checkpoint.py`: the same '/'-joined keys, and the files
 hold the JAX package's weight layouts (utils/weights.py maps them), so a
 `training-<tag>.npz` or `state-<tag>.npz` written by either package
-loads into the other. A run directory `<date>-<TYPE>-<batch>/` holds
-those files, the metric-curve `.npy` files and a `version` file stamping
-the git commit. The Chainer-layout converter comes in a later slice.
+loads into the other, for the CDNA, DNA and STP heads (per-mask STP
+projections under `head/identity_params/<i>/`). A run directory
+`<date>-<TYPE>-<batch>/` holds those files, the metric-curve `.npy`
+files and a `version` file stamping the git commit. The Chainer-layout
+converter comes in a later slice.
 """
 
 from __future__ import annotations

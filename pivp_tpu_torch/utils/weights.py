@@ -11,10 +11,14 @@ weight layouts:
   * LayerNorm scale/bias and all biases keep their shape.
 
 With these mappings an npz written by either package loads into the
-other (utils/checkpoint.py writes the JAX layout). The optimizer state
-(`count`, `mu/<param key>`, `nu/<param key>`, the JAX ChainerAdamState)
-crosses the same way: each moment takes its parameter's layout, and
-`count` passes unchanged.
+other (utils/checkpoint.py writes the JAX layout). The per-mask STP
+projections, a list in the JAX package (flattened to
+`head/identity_params/<i>/w|b`), are a dict keyed "0", "1", ... in the
+port (models/heads.py), which flattens to the same keys; each is a dense
+layer, and DNA's `head/enc7` a transposed conv with K*K outputs. The
+optimizer state (`count`, `mu/<param key>`, `nu/<param key>`, the JAX
+ChainerAdamState) crosses the same way: each moment takes its
+parameter's layout, and `count` passes unchanged.
 """
 
 from __future__ import annotations

@@ -230,3 +230,32 @@ def test_local_apply_kernels_reject_a_plan_off_their_layout(cuda, name,
     bad = dataclasses.replace(plan, smem=plan.smem + 16)
     with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
         la._launch(name, a, b, torch.empty_like(a), a.shape, 5, bad)
+
+
+def test_dna_apply_kernels_on_a_strided_enc7_slice(cuda):
+    """DNA's kernel logits are a channel slice of the merged masks+enc7
+    conv (last-dim stride 27): dna_apply hands the kernels contiguous
+    operands, and its forward and both backward kernels launch and agree
+    with the shifted-stack form, in values and gradients."""
+    from pivp_tpu_torch.ops import transforms
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    prev = torch.rand((4, 64, 64, 3), generator=g, device=cuda)
+    merged = torch.randn((4, 64, 64, 27), generator=g, device=cuda)
+    merged.requires_grad_()
+    assert not merged[..., 2:].is_contiguous()
+    counts = (la.local_kernel_apply, la.local_kernel_apply_bwd_w,
+              la.local_kernel_apply_bwd_x)
+    before = [f.launches for f in counts]
+    prev_k = prev.clone().requires_grad_()
+    got = transforms.dna_apply(prev_k, merged[..., 2:],
+                               local_apply=la.local_kernel_apply)
+    gy = torch.randn(got.shape, generator=g, device=cuda)
+    got_g = torch.autograd.grad(got, (prev_k, merged), gy)
+    assert [f.launches for f in counts] == [n + 1 for n in before]
+    prev_p = prev.clone().requires_grad_()
+    want = transforms.dna_apply(prev_p, merged[..., 2:])
+    want_g = torch.autograd.grad(want, (prev_p, merged), gy)
+    _close(got, want, 1e-5)
+    for a, b in zip(got_g, want_g):
+        _close(a, b, 1e-5)

@@ -94,7 +94,29 @@ def test_run_validation_raises_without_gpu():
         loop.run_validation(eval_step, {}, arrays, 2, 1e-4)
 
 
-def test_heads_of_later_slices_raise():
-    cfg = ModelConfig(model_type="STP")
-    with pytest.raises(NotImplementedError, match="CDNA"):
-        predictor.init_params(torch.Generator(), cfg, device="cpu")
+@pytest.mark.parametrize("head", [dict(model_type="DNA", num_masks=1),
+                                  dict(model_type="STP"),
+                                  dict(model_type="STP",
+                                       stp_shared_params=False)],
+                         ids=["DNA", "STP", "STP_per_mask"])
+def test_every_head_builds_its_params_on_the_cpu(head):
+    cfg = ModelConfig(**head)
+    params = predictor.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu")
+    assert params["enc0"]["w"].device.type == "cpu"
+    if cfg.is_dna:
+        assert set(params["head"]) == {"enc7"}
+        assert params["head"]["enc7"]["w"].shape == (64, 25, 1, 1)
+    else:
+        ip = params["head"]["identity_params"]
+        per_mask = {str(i) for i in range(cfg.num_masks - 1)}
+        assert (set(ip) == per_mask) != cfg.stp_shared_params
+
+
+def test_unknown_heads_and_dna_with_masks_are_refused():
+    with pytest.raises(ValueError, match="No network specified"):
+        ModelConfig(model_type="ConvLSTM")
+    with pytest.raises(ValueError, match="Only one mask"):
+        ModelConfig(model_type="DNA", num_masks=10)
+    with pytest.raises(ValueError, match="Only one mask"):
+        TrainConfig(model_type="DNA").model_config()

@@ -114,12 +114,28 @@ def test_unfused_cdna_matches_fused(setup):
     _compare(fused, unfused, img_tol=1e-5, psnr_tol=1e-3, rtol=1e-4)
 
 
-def test_train_rollout_names_training_slice(setup):
-    # The training rollout is ported for the CDNA head; the DNA head's
-    # raises, naming the later slice that brings it.
-    _, params, data = setup
-    params = weights.from_jax_params(flatten_pytree(params))
-    cfg = tconfig.ModelConfig(**dict(SMALL, model_type="DNA", num_masks=1))
-    with pytest.raises(NotImplementedError, match="DNA/STP head slice"):
-        tpred.rollout(params, cfg, *[torch.as_tensor(a) for a in data],
-                      train=True)
+@pytest.mark.parametrize("head", [dict(model_type="DNA", num_masks=1),
+                                  dict(model_type="STP"),
+                                  dict(model_type="STP",
+                                       stp_shared_params=False)],
+                         ids=["DNA", "STP", "STP_per_mask"])
+def test_train_rollout_of_every_head_gives_finite_losses(setup, head):
+    # The scheduled-sampling rollout of the DNA and STP heads on the
+    # CPU, from the port's own init, with gradients through it.
+    _, _, data = setup
+    cfg = tconfig.ModelConfig(**dict(SMALL, scheduled_sampling_k=900.0,
+                                     **head))
+    params = tpred.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    flat = weights.flatten(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    out = tpred.rollout(params, cfg, *[torch.as_tensor(a) for a in data],
+                        train=True, iter_num=100)
+    loss = out["loss"].detach()
+    assert out["gen_images"].shape == (T - 1, B, 16, 16, 3)
+    assert bool(torch.isfinite(loss)) and float(loss) > 0
+    grads = dict(zip(flat, torch.autograd.grad(out["loss"],
+                                               list(flat.values()))))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["head/enc7/w"].abs().sum()) > 0
