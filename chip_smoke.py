@@ -46,6 +46,22 @@ shared affine projection, then one per mask), in phases:
   9. per-mask the same for STP with a projection per mask, reached
               through the API: no npz round trip and no train_cli, whose
               flags do not select it
+ 10. deploy   CDNA: seeded params -> export_reference_npz (the Chainer
+              layout) -> convert_cli import, equal to the params bit for
+              bit -> export_cli (a torch.export artifact) -> the example
+              HTTP server (examples/serve_http_torch.py), which loads it:
+              its graph's kernel nodes (9 / 63), its frames against
+              make_serve_fn's, bit for bit with cudnn.deterministic (the
+              count under cuDNN's default algorithms, which differ from
+              run to run in the transposed convolutions, is printed),
+              the launches of --requests requests by counter and of one
+              by the profiler, the medians of the artifact and
+              make_serve_fn in turns, and one b32 POST (its round trip,
+              its frames, and a 400 for a malformed body and for a wrong
+              batch); then DNA (9 / 63) and STP shared (0 / 63), exported
+              and loaded through the API, with the same checks but the
+              profile and HTTP. Artifact sizes and export and load
+              seconds are printed; the artifacts are deleted.
 
 Each phase prints its seconds. Any failure exits non-zero. The last
 lines are a `kernels` JSON line (the forward kernels' launches are the
@@ -531,10 +547,11 @@ def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
             "library_ms": None}
 
 
-def profile_request(serve, request, trace_path, what="request") -> None:
+def profile_request(serve, request, trace_path, what="request") -> tuple:
     """One call of `serve(*request)` under torch.profiler: the device's
     busy share of its wall time and the kernels that take it; the trace
-    goes to `trace_path` unless it is None."""
+    goes to `trace_path` unless it is None. Returns the launches of each
+    port kernel in the trace, in the order of `_counted()`."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -564,13 +581,16 @@ def profile_request(serve, request, trace_path, what="request") -> None:
             f"{e.key[:100]}")
     # The port's kernels, which the list above rarely reaches, matched by
     # their CUDA function names (each type and size is a key of its own).
+    launches = []
     for fn, cuda_name in zip(_counted(), CUDA_NAMES):
         found = [e for e in kernels if f"{cuda_name}<" in e.key]
         us = sum(e.self_device_time_total for e in found)
         n = sum(e.count for e in found)
+        launches.append(n)
         log(f"  in the {what}: {fn.__name__} ({cuda_name}) "
             + (f"{us:.1f} us in {n} launches, {us / n:.2f} us per launch"
                if n else "not in the trace"))
+    return tuple(launches)
 
 
 def rollout_flops(params, cfg, batch: int) -> float:
@@ -1162,6 +1182,203 @@ def train_phase(args, card: str, cfg, iterations, cli: bool = True):
     return launches
 
 
+def frames_differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got != want).sum())
+
+
+def check_artifact(head: str, cfg, serve, live, request, requests: int,
+                   profile: bool) -> None:
+    """A loaded serving artifact `serve` against make_serve_fn's `live`
+    on the same weights: its graph's kernel nodes; its frames, bit for
+    bit with cudnn.deterministic (cuDNN's default algorithm for the
+    transposed convolutions is not reproducible from one run to the
+    next, so make_serve_fn differs from itself by tens to hundreds of u8
+    values a request; both counts are printed); the launches of `requests`
+    requests by counter and, with `profile`, of one by the profiler;
+    and the medians of both, timed in turns."""
+    from pivp_tpu_torch.inference import export
+
+    nodes = export.kernel_nodes(serve.exported)
+    want_nodes = {"lstm_gates_fwd": STEPS * GATE_LAUNCHES_PER_STEP}
+    if not cfg.is_stp:
+        want_nodes["local_apply_fwd"] = STEPS
+    log(f"{head} artifact: pivp nodes {nodes} (expected {want_nodes}); "
+        f"inputs {[tuple(s.shape) for s in serve.in_specs]}")
+    if nodes != want_nodes:
+        fail(f"{head} artifact: kernel nodes {nodes} != {want_nodes}")
+    got, want, again = serve(*request), live(*request), live(*request)
+    torch.cuda.synchronize()
+    if (got.shape != want.shape or got.dtype != torch.uint8
+            or want.shape != (PREDICTED, BATCH, cfg.image_height,
+                              cfg.image_width, cfg.color_channels)):
+        fail(f"{head} artifact output {tuple(got.shape)} {got.dtype}")
+    log(f"{head} artifact vs make_serve_fn, cuDNN's default algorithms: "
+        f"{frames_differ(got, want)} of {want.numel()} u8 values differ "
+        f"(make_serve_fn vs itself: {frames_differ(again, want)})")
+    with deterministic_cudnn():
+        got, want = serve(*request), live(*request)
+        torch.cuda.synchronize()
+    n = frames_differ(got, want)
+    log(f"{head} artifact vs make_serve_fn, cudnn.deterministic: {n} of "
+        f"{want.numel()} u8 values differ")
+    if n:
+        fail(f"{head} artifact's frames differ from make_serve_fn's")
+    reset_counters()
+    time_requests(serve, request, requests)
+    check_counters(f"{head} artifact ({requests} requests)", requests,
+                   local_apply=not cfg.is_stp)
+    if profile:
+        seen = profile_request(serve, request, None,
+                               what=f"{head} artifact request")
+        if seen != (STEPS, STEPS * GATE_LAUNCHES_PER_STEP, 0, 0, 0):
+            fail(f"{head} artifact request: profiled launches {seen}")
+    t_art, t_live = [], []
+    for _ in range(requests):
+        t_art += time_requests(serve, request, 1)[0]
+        t_live += time_requests(live, request, 1)[0]
+    log(f"{head} b{BATCH}, in turns: artifact ms/request "
+        f"{[round(x * 1e3, 3) for x in t_art]} (median "
+        f"{np.median(t_art) * 1e3:.3f}), make_serve_fn "
+        f"{[round(x * 1e3, 3) for x in t_live]} (median "
+        f"{np.median(t_live) * 1e3:.3f})")
+
+
+def check_http(httpd, live, request) -> None:
+    """The example server, serving in a thread: /healthz, one timed b32
+    POST at cuDNN's default algorithms, one under cudnn.deterministic
+    whose frames must equal make_serve_fn's, and a 400 for a malformed
+    body and for a wrong batch."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    def post(body: bytes):
+        return urllib.request.urlopen(urllib.request.Request(
+            base + "/predict", data=body, method="POST"), timeout=120)
+
+    def npz(images, actions, state0) -> bytes:
+        out = io.BytesIO()
+        np.savez(out, images=images, actions=actions, state0=state0)
+        return out.getvalue()
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        host, port = httpd.server_address
+        base = f"http://{host}:{port}"
+        if urllib.request.urlopen(base + "/healthz",
+                                  timeout=60).read() != b"ok":
+            fail("the HTTP server's /healthz is not ok")
+        arrays = [a.cpu().numpy() for a in request]
+        t0 = time.perf_counter()
+        post(npz(*arrays)).read()
+        ms = (time.perf_counter() - t0) * 1e3
+        with deterministic_cudnn():
+            with np.load(io.BytesIO(post(npz(*arrays)).read())) as z:
+                frames = z["frames"]
+            want = live(*request).cpu().numpy()
+        n = int((frames != want).sum())
+        log(f"HTTP b{BATCH} POST /predict: round trip {ms:.3f} ms; with "
+            f"cudnn.deterministic {n} of {want.size} u8 values differ from "
+            f"make_serve_fn's")
+        if n:
+            fail("the HTTP reply's frames differ from make_serve_fn's")
+        for what, body in (("a malformed body", b"not-an-npz"),
+                           ("a wrong batch", npz(*(a[:, :1] if a.ndim > 2
+                                                   else a[:1]
+                                                   for a in arrays)))):
+            try:
+                post(body)
+                fail(f"HTTP: {what} was answered")
+            except urllib.error.HTTPError as e:
+                log(f"HTTP: {what} gets {e.code}")
+                if e.code != 400:
+                    fail(f"HTTP: {what} gets {e.code}, not 400")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        fail("the HTTP server's thread did not stop")
+
+
+def deploy_phase(args) -> None:
+    """CDNA: seeded params -> export_reference_npz (the Chainer layout)
+    -> convert_cli import (bit for bit) -> export_cli from a run
+    directory that names the head -> the example HTTP server, which
+    loads the artifact; the artifact against make_serve_fn
+    (check_artifact, profiled) and over HTTP (check_http). Then DNA and
+    STP (shared): export_serving_artifact -> load_serving_artifact ->
+    check_artifact. Artifacts go to a temp dir, deleted at the end."""
+    from pivp_tpu_torch.inference import export, export_cli
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.utils import checkpoint, convert_cli, weights
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    import serve_http_torch
+
+    tmp = tempfile.mkdtemp(dir=args.out, prefix="deploy-")
+    try:
+        cfg = head_config("CDNA")
+        params = predictor.init_params(
+            torch.Generator().manual_seed(args.seed), cfg, device="cuda")
+        request = synthetic_batch(args.seed)
+        request = (request[0][:cfg.context_frames],
+                   request[1][:cfg.sequence_length - 1], request[2][0])
+        chainer = os.path.join(tmp, "chainer.npz")
+        checkpoint.export_reference_npz(chainer, cfg, params)
+        models = os.path.join(tmp, "models")
+        ours = os.path.join(models, run_name("CDNA"), "training-final.npz")
+        os.makedirs(os.path.dirname(ours))
+        convert_cli.main(["import", chainer, ours, "--model_type", "CDNA",
+                          "--num_masks", str(cfg.num_masks)],
+                         standalone_mode=False)
+        want = weights.to_jax_params(params)
+        with np.load(ours) as z:
+            same = sorted(z.files) == sorted(want) and all(
+                z[k].dtype == v.dtype and np.array_equal(z[k], v)
+                for k, v in want.items())
+        log(f"CDNA Chainer npz ({os.path.getsize(chainer)} bytes) -> "
+            f"convert_cli import: {len(want)} arrays, equal to the params "
+            f"bit for bit: {same}")
+        if not same:
+            fail("convert_cli import changed the params")
+        pt2 = os.path.join(tmp, "cdna.pt2")
+        t0 = time.perf_counter()
+        export_cli.main([run_name("CDNA"), "training-final.npz", pt2,
+                         "--models_dir", models, "--batch", str(BATCH),
+                         "--device", "cuda"], standalone_mode=False)
+        t1 = time.perf_counter()
+        httpd = serve_http_torch.make_server(pt2, "127.0.0.1", 0)
+        log(f"CDNA export_cli: {os.path.getsize(pt2)} bytes in "
+            f"{t1 - t0:.1f} s; make_server loaded and warmed it up in "
+            f"{time.perf_counter() - t1:.1f} s")
+        live = export.make_serve_fn(params, cfg)
+        check_artifact("CDNA", cfg, httpd.artifact, live, request,
+                       args.requests, profile=True)
+        check_http(httpd, live, request)
+        for head in ("DNA", "STP"):
+            cfg = head_config(head)
+            params = predictor.init_params(
+                torch.Generator().manual_seed(args.seed), cfg,
+                device="cuda")
+            path = os.path.join(tmp, f"{head}.pt2")
+            t0 = time.perf_counter()
+            export.export_serving_artifact(params, cfg, BATCH, path)
+            t1 = time.perf_counter()
+            serve = export.load_serving_artifact(path)
+            log(f"{head} export_serving_artifact: {os.path.getsize(path)} "
+                f"bytes in {t1 - t0:.1f} s; load_serving_artifact "
+                f"{time.perf_counter() - t1:.1f} s")
+            check_artifact(head, cfg, serve,
+                           export.make_serve_fn(params, cfg), request,
+                           HEAD_REQUESTS, profile=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1248,6 +1465,11 @@ def main() -> None:
     serve_phase(args, card, per_mask, HEAD_REQUESTS, round_trip=False)
     train_phase(args, card, per_mask, (6000,), cli=False)
     phase_done("9 STP per-mask")
+
+    # 10. deployment: Chainer npz -> convert -> export -> HTTP, and the
+    # DNA and STP artifacts
+    deploy_phase(args)
+    phase_done("10 deploy")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",

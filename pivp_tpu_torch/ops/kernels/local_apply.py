@@ -1,5 +1,6 @@
-"""Per-pixel K*K local kernel application: the CUDA kernels' wrappers,
-the autograd Function around them and their plain PyTorch versions.
+"""Per-pixel K*K local kernel application: the `torch.ops.pivp` ops
+that launch the CUDA kernels, their wrappers, the autograd Function
+around them and their plain PyTorch versions.
 
     y[b, h, w, c]  = sum_t  W[b, h, w, t] * x_pad[b, h + dx_t, w + dy_t, c]
     dW[b, h, w, t] = sum_c  g[b, h, w, c] * x_pad[b, h + dx_t, w + dy_t, c]
@@ -247,11 +248,6 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("local_kernel_apply takes contiguous NHWC tensors")
 
 
-def _require_cuda(t: torch.Tensor, name: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, got {t.device}")
-
-
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
             shape, k: int, plan: TilePlan) -> None:
     bsz, h, wd, c = shape
@@ -263,14 +259,20 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
     build.check(err, name)
 
 
-def local_kernel_apply_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The forward pass, outside autograd. On a CUDA tensor this launches
-    the forward kernel (and counts the launch in
-    `local_kernel_apply.launches`); on a CPU tensor it computes the plain
-    version."""
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return local_kernel_apply_plain(x, w)
-    _require_cuda(x, "local_kernel_apply")
+# The dispatcher ops. Each kernel launch is an op of the `pivp`
+# namespace, so that a traced graph (torch.export) holds the launch as a
+# node and a replay of that graph launches the kernel. An op has three
+# implementations: CUDA (the launch, counted), CPU (the plain version)
+# and fake (shapes and dtypes only, for tracing; it builds nothing).
+# They are registered when this module is imported; the kernels build at
+# the first CUDA launch.
+_LIB = torch.library.Library("pivp", "FRAGMENT")
+_LIB.define("local_apply_fwd(Tensor x, Tensor w) -> Tensor")
+_LIB.define("local_apply_bwd_w(Tensor x, Tensor g, int k) -> Tensor")
+_LIB.define("local_apply_bwd_x(Tensor w, Tensor g) -> Tensor")
+
+
+def _fwd_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     k = kernel_size(w)
     y = torch.empty_like(x)
@@ -280,15 +282,7 @@ def local_kernel_apply_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def local_kernel_apply_bwd_w(x: torch.Tensor, g: torch.Tensor,
-                             k: int) -> torch.Tensor:
-    """dW (B, H, W, K*K) from x and the cotangent g (B, H, W, C). On a
-    CUDA tensor this launches the dW kernel (and counts the launch in
-    `local_kernel_apply_bwd_w.launches`); on a CPU tensor it computes the
-    plain version."""
-    if x.device.type == "cpu" and g.device.type == "cpu":
-        return local_kernel_apply_bwd_w_plain(x, g, k)
-    _require_cuda(x, "local_kernel_apply_bwd_w")
+def _bwd_w_cuda(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     _check(x, g)
     if g.shape != x.shape:
         raise ValueError(f"cotangent {tuple(g.shape)} is not x's shape "
@@ -300,15 +294,7 @@ def local_kernel_apply_bwd_w(x: torch.Tensor, g: torch.Tensor,
     return dw
 
 
-def local_kernel_apply_bwd_x(w: torch.Tensor, g: torch.Tensor
-                             ) -> torch.Tensor:
-    """dX (B, H, W, C) from w and the cotangent g (B, H, W, C). On a CUDA
-    tensor this launches the dX kernel (and counts the launch in
-    `local_kernel_apply_bwd_x.launches`); on a CPU tensor it computes the
-    plain version."""
-    if w.device.type == "cpu" and g.device.type == "cpu":
-        return local_kernel_apply_bwd_x_plain(w, g)
-    _require_cuda(w, "local_kernel_apply_bwd_x")
+def _bwd_x_cuda(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check(w, g)
     k = kernel_size(w)
     dx = torch.empty_like(g)
@@ -316,6 +302,68 @@ def local_kernel_apply_bwd_x(w: torch.Tensor, g: torch.Tensor
             tile_plan_bwd_x(g.shape, k, g.dtype))
     local_kernel_apply_bwd_x.launches += 1
     return dx
+
+
+_LIB.impl("local_apply_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("local_apply_bwd_w", _bwd_w_cuda, "CUDA")
+_LIB.impl("local_apply_bwd_x", _bwd_x_cuda, "CUDA")
+_LIB.impl("local_apply_fwd", local_kernel_apply_plain, "CPU")
+_LIB.impl("local_apply_bwd_w", local_kernel_apply_bwd_w_plain, "CPU")
+_LIB.impl("local_apply_bwd_x", local_kernel_apply_bwd_x_plain, "CPU")
+
+
+@torch.library.register_fake("pivp::local_apply_fwd", lib=_LIB)
+def _fwd_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty(x.shape)
+
+
+@torch.library.register_fake("pivp::local_apply_bwd_w", lib=_LIB)
+def _bwd_w_fake(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    return x.new_empty(x.shape[:3] + (k * k,))
+
+
+@torch.library.register_fake("pivp::local_apply_bwd_x", lib=_LIB)
+def _bwd_x_fake(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return g.new_empty(g.shape)
+
+
+def _require_device(t: torch.Tensor, name: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {t.device}")
+
+
+_FWD = torch.ops.pivp.local_apply_fwd.default
+_BWD_W = torch.ops.pivp.local_apply_bwd_w.default
+_BWD_X = torch.ops.pivp.local_apply_bwd_x.default
+
+
+def local_kernel_apply_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward pass, outside autograd: the op `pivp::local_apply_fwd`.
+    On CUDA tensors it launches the forward kernel (counted in
+    `local_kernel_apply.launches`); on CPU tensors it computes the plain
+    version."""
+    _require_device(x, "local_kernel_apply")
+    return _FWD(x, w)
+
+
+def local_kernel_apply_bwd_w(x: torch.Tensor, g: torch.Tensor,
+                             k: int) -> torch.Tensor:
+    """dW (B, H, W, K*K) from x and the cotangent g (B, H, W, C): the op
+    `pivp::local_apply_bwd_w`. On CUDA tensors it launches the dW kernel
+    (counted in `local_kernel_apply_bwd_w.launches`); on CPU tensors it
+    computes the plain version."""
+    _require_device(x, "local_kernel_apply_bwd_w")
+    return _BWD_W(x, g, k)
+
+
+def local_kernel_apply_bwd_x(w: torch.Tensor, g: torch.Tensor
+                             ) -> torch.Tensor:
+    """dX (B, H, W, C) from w and the cotangent g (B, H, W, C): the op
+    `pivp::local_apply_bwd_x`. On CUDA tensors it launches the dX kernel
+    (counted in `local_kernel_apply_bwd_x.launches`); on CPU tensors it
+    computes the plain version."""
+    _require_device(w, "local_kernel_apply_bwd_x")
+    return _BWD_X(w, g)
 
 
 class _LocalKernelApply(torch.autograd.Function):

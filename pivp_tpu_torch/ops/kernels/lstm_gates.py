@@ -1,5 +1,6 @@
-"""Fused ConvLSTM gate update: the CUDA kernels' wrappers, the autograd
-Function around them and their plain PyTorch versions.
+"""Fused ConvLSTM gate update: the `torch.ops.pivp` ops that launch the
+CUDA kernels, their wrappers, the autograd Function around them and
+their plain PyTorch versions.
 
     j, i, f, o = split(gates, 4, axis=-1)          # (B, H, W, C) each
     new_c = c * sigmoid(f + forget_bias) + sigmoid(i) * tanh(j)
@@ -84,15 +85,6 @@ def _check(gates: torch.Tensor, c: torch.Tensor) -> int:
     return C
 
 
-def _on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
-    return all(t is None or t.device.type == "cpu" for t in tensors)
-
-
-def _require_cuda(t: torch.Tensor, name: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, got {t.device}")
-
-
 def _cotangent(g: Optional[torch.Tensor], c: torch.Tensor):
     """A cotangent as the kernel takes it: c's type, contiguous, on c's
     device; None stays None (a null pointer, read as zero)."""
@@ -104,16 +96,19 @@ def _cotangent(g: Optional[torch.Tensor], c: torch.Tensor):
     return g.to(c.dtype).contiguous()
 
 
-def fused_lstm_gates_fwd(gates: torch.Tensor, c: torch.Tensor,
-                         forget_bias: float = 1.0
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward pass, outside autograd. On a CUDA tensor this launches
-    the forward kernel (and counts the launch in
-    `fused_lstm_gates.launches`); on a CPU tensor it computes the plain
-    version."""
-    if _on_cpu(gates, c):
-        return fused_lstm_gates_plain(gates, c, forget_bias)
-    _require_cuda(c, "fused_lstm_gates")
+# The dispatcher ops, as in local_apply.py: CUDA (the launch, counted),
+# CPU (the plain version) and fake (shapes and dtypes only) for each.
+# The backward's cotangents are optional: None reaches the kernel as a
+# null pointer, which it reads as zero.
+_LIB = torch.library.Library("pivp", "FRAGMENT")
+_LIB.define("lstm_gates_fwd(Tensor gates, Tensor c, float forget_bias) "
+            "-> (Tensor, Tensor)")
+_LIB.define("lstm_gates_bwd(Tensor gates, Tensor c, Tensor? g_newc, "
+            "Tensor? g_newh, float forget_bias) -> (Tensor, Tensor)")
+
+
+def _fwd_cuda(gates: torch.Tensor, c: torch.Tensor, forget_bias: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     C = _check(gates, c)
     new_c = torch.empty_like(c)
     new_h = torch.empty_like(c)
@@ -128,20 +123,9 @@ def fused_lstm_gates_fwd(gates: torch.Tensor, c: torch.Tensor,
     return new_c, new_h
 
 
-def fused_lstm_gates_bwd(gates: torch.Tensor, c: torch.Tensor,
-                         g_newc: Optional[torch.Tensor],
-                         g_newh: Optional[torch.Tensor],
-                         forget_bias: float = 1.0
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dgates, dc) from the cotangents of (new_c, new_h); either may be
-    None, for zero. On a CUDA tensor this launches the backward kernel
-    (and counts the launch in `fused_lstm_gates_bwd.launches`), passing
-    a None cotangent as a null pointer; on a CPU tensor it computes the
-    plain version."""
-    if _on_cpu(gates, c, g_newc, g_newh):
-        return fused_lstm_gates_bwd_plain(gates, c, g_newc, g_newh,
-                                          forget_bias)
-    _require_cuda(c, "fused_lstm_gates_bwd")
+def _bwd_cuda(gates: torch.Tensor, c: torch.Tensor,
+              g_newc: Optional[torch.Tensor], g_newh: Optional[torch.Tensor],
+              forget_bias: float) -> Tuple[torch.Tensor, torch.Tensor]:
     C = _check(gates, c)
     g_c, g_h = _cotangent(g_newc, c), _cotangent(g_newh, c)
     dgates = torch.empty_like(gates)
@@ -158,6 +142,59 @@ def fused_lstm_gates_bwd(gates: torch.Tensor, c: torch.Tensor,
     build.check(err, "pivp_lstm_gates_bwd")
     fused_lstm_gates_bwd.launches += 1
     return dgates, dc
+
+
+_LIB.impl("lstm_gates_fwd", _fwd_cuda, "CUDA")
+_LIB.impl("lstm_gates_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("lstm_gates_fwd", fused_lstm_gates_plain, "CPU")
+_LIB.impl("lstm_gates_bwd", fused_lstm_gates_bwd_plain, "CPU")
+
+
+@torch.library.register_fake("pivp::lstm_gates_fwd", lib=_LIB)
+def _fwd_fake(gates: torch.Tensor, c: torch.Tensor, forget_bias: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return c.new_empty(c.shape), c.new_empty(c.shape)
+
+
+@torch.library.register_fake("pivp::lstm_gates_bwd", lib=_LIB)
+def _bwd_fake(gates: torch.Tensor, c: torch.Tensor,
+              g_newc: Optional[torch.Tensor], g_newh: Optional[torch.Tensor],
+              forget_bias: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return gates.new_empty(gates.shape), c.new_empty(c.shape)
+
+
+def _require_device(t: torch.Tensor, name: str) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {t.device}")
+
+
+_FWD = torch.ops.pivp.lstm_gates_fwd.default
+_BWD = torch.ops.pivp.lstm_gates_bwd.default
+
+
+def fused_lstm_gates_fwd(gates: torch.Tensor, c: torch.Tensor,
+                         forget_bias: float = 1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward pass, outside autograd: the op `pivp::lstm_gates_fwd`.
+    On CUDA tensors it launches the forward kernel (counted in
+    `fused_lstm_gates.launches`); on CPU tensors it computes the plain
+    version."""
+    _require_device(c, "fused_lstm_gates")
+    return _FWD(gates, c, float(forget_bias))
+
+
+def fused_lstm_gates_bwd(gates: torch.Tensor, c: torch.Tensor,
+                         g_newc: Optional[torch.Tensor],
+                         g_newh: Optional[torch.Tensor],
+                         forget_bias: float = 1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dgates, dc) from the cotangents of (new_c, new_h), either of which
+    may be None for zero: the op `pivp::lstm_gates_bwd`. On CUDA tensors
+    it launches the backward kernel (counted in
+    `fused_lstm_gates_bwd.launches`), passing a None cotangent as a null
+    pointer; on CPU tensors it computes the plain version."""
+    _require_device(c, "fused_lstm_gates_bwd")
+    return _BWD(gates, c, g_newc, g_newh, float(forget_bias))
 
 
 class _FusedLSTMGates(torch.autograd.Function):

@@ -94,9 +94,13 @@ def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """The JAX package's parameters, flat and as numpy arrays, -> the
-    port's nested dict of CPU tensors in PyTorch layouts."""
-    return unflatten({k: torch.tensor(_jax_to_port(k, np.asarray(v)))
-                      for k, v in flat.items()})
+    port's nested dict of contiguous CPU tensors in PyTorch layouts
+    (torch.tensor keeps a transposed array's strides, which would hand
+    the convolutions weights in another memory layout than
+    `init_params` makes)."""
+    return unflatten({k: torch.tensor(np.require(
+        _jax_to_port(k, np.asarray(v)), requirements="C"))
+        for k, v in flat.items()})
 
 
 def to_jax_params(params: Dict[str, Any]) -> Dict[str, np.ndarray]:

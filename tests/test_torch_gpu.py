@@ -259,3 +259,76 @@ def test_dna_apply_kernels_on_a_strided_enc7_slice(cuda):
     _close(got, want, 1e-5)
     for a, b in zip(got_g, want_g):
         _close(a, b, 1e-5)
+
+
+def _op_inputs(name):
+    """CPU inputs of each `torch.ops.pivp` op at a small size."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(2, 16, 16, 3, generator=g)
+    w = torch.rand(2, 16, 16, 25, generator=g)
+    gy = torch.randn(2, 16, 16, 3, generator=g)
+    gates = torch.randn(2, 8, 8, 128, generator=g)
+    c, g_h = (torch.randn(2, 8, 8, 32, generator=g) for _ in range(2))
+    return {"local_apply_fwd": (x, w), "local_apply_bwd_w": (x, gy, 5),
+            "local_apply_bwd_x": (w, gy),
+            "lstm_gates_fwd": (gates, c, 1.0),
+            "lstm_gates_bwd": (gates, c, None, g_h, 1.0)}[name]
+
+
+@pytest.mark.parametrize("name", ["local_apply_fwd", "local_apply_bwd_w",
+                                  "local_apply_bwd_x", "lstm_gates_fwd",
+                                  "lstm_gates_bwd"])
+def test_op_cuda_implementation_matches_cpu(cuda, name):
+    """Each op's CUDA implementation (the kernel) against its CPU one
+    (the plain version) on the same inputs, within float32 rounding of
+    two orders of summation and two sets of transcendental functions
+    (1e-5); and opcheck of the op on the card."""
+    op = getattr(torch.ops.pivp, name)
+    args = _op_inputs(name)
+    on_card = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+    got, want = op(*on_card), op(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert a.device.type == "cuda"
+        _close(a.cpu(), b, 1e-5)
+    torch.library.opcheck(op, on_card)
+
+
+@pytest.mark.parametrize("head", [{}, dict(model_type="STP")],
+                         ids=["CDNA", "STP"])
+def test_artifact_frames_equal_make_serve_fn_on_the_card(cuda, head,
+                                                         tmp_path):
+    """A small artifact exported and loaded on the card holds the kernel
+    ops, launches the kernels, and its frames equal make_serve_fn's bit
+    for bit under cudnn.deterministic (cuDNN's default algorithm for the
+    transposed convolutions is not reproducible from run to run)."""
+    from pivp_tpu_torch.inference import export
+
+    cfg = ModelConfig(image_height=32, image_width=32, sequence_length=5,
+                      **head)
+    params = predictor.init_params(torch.Generator().manual_seed(0), cfg,
+                                   device=cuda)
+    path = str(tmp_path / "serve.pt2")
+    export.export_serving_artifact(params, cfg, 4, path)
+    serve = export.load_serving_artifact(path)
+    local = 0 if cfg.is_stp else 4
+    assert export.kernel_nodes(serve.exported) == dict(
+        lstm_gates_fwd=28, **({"local_apply_fwd": 4} if local else {}))
+    r = np.random.RandomState(0)
+    request = (r.rand(2, 4, 32, 32, 3).astype(np.float32),
+               r.randn(4, 4, 5).astype(np.float32),
+               r.randn(4, 5).astype(np.float32))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        la.local_kernel_apply.launches = lg.fused_lstm_gates.launches = 0
+        got = serve(*request)
+        assert la.local_kernel_apply.launches == local
+        assert lg.fused_lstm_gates.launches == 28
+        want = export.make_serve_fn(params, cfg)(*request)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got, want)
