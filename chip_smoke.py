@@ -62,6 +62,29 @@ shared affine projection, then one per mask), in phases:
               and loaded through the API, with the same checks but the
               profile and HTTP. Artifact sizes and export and load
               seconds are printed; the artifacts are deleted.
+ 11. driver   the rest of the training driver. (a) For CDNA at b32 and
+              DNA and STP (shared) at b8: from one seeded state, 4
+              replays of the captured train step (make_train_multi, a
+              CUDA graph) equal 4 eager steps bit for bit under
+              cudnn.deterministic and torch.use_deterministic_algorithms
+              (warn only; the ops without a deterministic implementation
+              are printed): params, Adam mu/nu/count, per-step loss and
+              PSNR; a replay launches 9/63/9/9/63 kernels (STP
+              0/63/0/0/63); then, at b32 for each head, the graphed and
+              eager step medians, the capture seconds, the graph pool's
+              bytes, and one profiled dispatch (its launches 4x a
+              replay's) and eager step. (b) train_cli --steps_per_call 4
+              --prefetch 2 --checkpointer torch on 200 synthetic
+              sequences on disk (24 iterations, epochs of 5): the run in
+              process (launches counted), a train_cli process that gets
+              a SIGTERM after its first epoch, checkpoints, exits 0 and
+              is started again with the same --run_name (final npz and
+              curves bit for bit equal to the run in process), and
+              --lazy_load 1 (equal too). (c) --profile_dir on a
+              3-iteration run: the trace holds the five kernels. (d)
+              visualize_cli on (b)'s run directory: loss curves and the
+              enc0..enc7 grids and projections; the captured activations
+              through the kernels within FRAME_TOL of the plain ops'.
 
 Each phase prints its seconds. Any failure exits non-zero. The last
 lines are a `kernels` JSON line (the forward kernels' launches are the
@@ -76,7 +99,7 @@ writing its own output). The cold time is the one to hold against the
 bound, which counts every byte from and to device memory.
 
 Usage: python3 chip_smoke.py [--seed 0] [--requests 3] [--train_steps 3]
-                             [--out DIR] [--kernels_only]
+                             [--out DIR] [--kernels_only] [--driver_only]
                              [--bwd_x_rows 2,4,8]
 """
 
@@ -85,16 +108,24 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
-import numpy as np
-import torch
+# cuBLAS is reproducible under torch.use_deterministic_algorithms only
+# with a fixed workspace, which has to be set before its first use
+# (phase 11 runs under those settings).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
 # float32 rate outside the tensor cores, which these kernels use.
@@ -169,6 +200,27 @@ FRAME_TOL = 1e-4
 CUDA_NAMES = ("local_apply_fwd_kernel", "lstm_gates_fwd_kernel",
               "local_apply_bwd_w_kernel", "local_apply_bwd_x_kernel",
               "lstm_gates_bwd_kernel")
+# Phase 11: K steps a dispatch; the graphed-vs-eager checks start at an
+# iteration where 17 of 32 rows take ground truth (num_ground_truth), so
+# the steps read the sampling stream. Phase 11's train_cli runs train on
+# DRIVER_SEQUENCES synthetic sequences on disk, 160 for training (5
+# batches an epoch at b32) and 40 for validation (every 2 epochs), for
+# DRIVER_ITERS iterations: the dispatch boundaries 4, 8, 12, 16 and 24
+# fall inside an epoch.
+DRIVER_K = 4
+DRIVER_ITER0 = 6000
+DRIVER_SEQUENCES, DRIVER_SPLIT, DRIVER_ITERS = 200, "0.8", 24
+DRIVER_EPOCH = 5
+# Each head's graphed-vs-eager check runs at this batch (the step times
+# are taken at BATCH for all three).
+DRIVER_CHECK_BATCH = {"CDNA": BATCH, "DNA": 8, "STP": 8}
+# A train_cli process with phase 11's determinism settings (see
+# `deterministic`), its arguments after -c.
+DRIVER_CHILD = (
+    "import sys, torch; torch.backends.cudnn.deterministic = True; "
+    "torch.use_deterministic_algorithms(True, warn_only=True); "
+    "from pivp_tpu_torch.training import train_cli; "
+    "train_cli.main(sys.argv[1:])")
 
 
 def fail(msg: str) -> None:
@@ -1378,6 +1430,464 @@ def deploy_phase(args) -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+@contextlib.contextmanager
+def deterministic():
+    """cudnn.deterministic and torch.use_deterministic_algorithms(True,
+    warn_only=True): yields the list that collects the warning of each
+    op that has no deterministic implementation."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+
+
+@contextlib.contextmanager
+def thread_querying_events():
+    """A thread that, until the block ends, makes the CUDA calls the
+    loop's prefetch thread makes while it pins payloads: pinned
+    allocations and event queries (the host allocator's). A capture in
+    CUDA's global mode fails when another thread makes them. Yields a
+    list holding the thread's round count, then any error it met."""
+    import threading
+
+    stop, out = threading.Event(), [0]
+    event = torch.cuda.Event()
+    event.record(torch.cuda.Stream())
+
+    def run():
+        try:
+            while not stop.is_set():
+                torch.empty(1 << 16, dtype=torch.uint8, pin_memory=True)
+                event.query()
+                out[0] += 1
+        except Exception as e:  # reported by the caller
+            out.append(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+
+
+def nondeterministic_ops(caught) -> list:
+    return sorted({str(w.message).split(" does not have")[0][:120]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def driver_batches(seed: int, batch: int, k: int = DRIVER_K) -> tuple:
+    """k time-major batches stacked (k, T, B, ...), frames as uint8 (what
+    the loop stages with u8_transfer), on the host."""
+    from pivp_tpu_torch.config import ModelConfig
+    from pivp_tpu_torch.data import synthetic
+    from pivp_tpu_torch.training import loop
+
+    cfg = ModelConfig()
+    imgs, acts, stas = synthetic.generate_sequences(
+        k * batch, cfg.sequence_length, cfg.image_height, cfg.image_width,
+        seed=seed)
+    stacked = tuple(np.stack([a[i * batch:(i + 1) * batch].swapaxes(0, 1)
+                              for i in range(k)])
+                    for a in (imgs, acts, stas))
+    return (loop._quantize_images(stacked[0]),) + stacked[1:]
+
+
+def new_train_state(cfg, seed: int):
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    params = predictor.init_params(torch.Generator().manual_seed(seed),
+                                   cfg, device="cuda")
+    return ts.create_train_state(params, ts.make_optimizer(1e-3))
+
+
+def per_step_launches(cfg) -> tuple:
+    la = 0 if cfg.is_stp else STEPS
+    return (la, STEPS * GATE_LAUNCHES_PER_STEP, la, la,
+            STEPS * GATE_LAUNCHES_PER_STEP)
+
+
+def graphed_vs_eager(args, cfg, batch: int) -> None:
+    """Phase 11 (a): from one seeded state and one set of DRIVER_K
+    batches, the replays of the captured train step against as many
+    eager steps, under `deterministic`: the params, the Adam mu/nu/count
+    and each step's loss and PSNR bit for bit, and the launches each
+    replay makes (the counters: the warm-up steps and the replays). The
+    capture runs beside a thread that pins buffers and queries events,
+    as the loop's prefetch thread does in a run's first dispatch."""
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+    from pivp_tpu_torch.utils import weights
+
+    head = label(cfg)
+    seed = args.seed + 1
+    batches = driver_batches(args.seed + 2, batch)
+    with deterministic() as caught:
+        eager, step = new_train_state(cfg, args.seed), ts.make_train_step(cfg)
+        want = []
+        for i in range(DRIVER_K):
+            it = DRIVER_ITER0 + i
+            _, m = step(eager, tuple(torch.as_tensor(a[i], device="cuda")
+                                     for a in batches), it,
+                        sampling.generator(seed, it))
+            want.append(torch.stack([m["loss"], m["psnr_all"]]))
+        graphed = new_train_state(cfg, args.seed)
+        multi = ts.make_train_multi(cfg)
+        reset_counters()
+        with thread_querying_events() as thread:
+            _, got = multi(graphed, batches, DRIVER_ITER0, seed)
+            torch.cuda.synchronize()
+        counts = read_counters()
+    cap = multi.captured
+    log(f"{head} b{batch}: captured with another thread pinning buffers "
+        f"and querying events ({thread[0]} rounds, errors {thread[1:]})")
+    if thread[0] == 0 or thread[1:]:
+        fail(f"{head}: the event-querying thread: {thread}")
+    want_launches = per_step_launches(cfg)
+    log(f"{head} b{batch}: captured train step, launches a replay "
+        f"{cap.launches} (expected {want_launches}); counters over the "
+        f"dispatch {counts} (2 warm-up steps + {DRIVER_K} replays); "
+        f"capture {cap.capture_s:.2f} s, graph pool "
+        f"{cap.pool_bytes} bytes ({cap.pool_bytes / 2**30:.3f} GiB)")
+    if cap.launches != want_launches:
+        fail(f"{head}: a replay launches {cap.launches}")
+    if counts != tuple((2 + DRIVER_K) * n for n in want_launches):
+        fail(f"{head}: counters {counts} over the dispatch")
+    ops = nondeterministic_ops(caught)
+    log(f"{head} b{batch}: ops without a deterministic implementation: "
+        f"{ops or 'none'}")
+    a = dict(weights.flatten(ts.opt_state_tree(graphed)),
+             **{f"params/{k}": v for k, v
+                in weights.flatten(graphed.params).items()})
+    b = dict(weights.flatten(ts.opt_state_tree(eager)),
+             **{f"params/{k}": v for k, v
+                in weights.flatten(eager.params).items()})
+    differ = [k for k in b if not torch.equal(a[k], b[k])]
+    metrics = torch.stack([got["loss"], got["psnr_all"]], dim=1)
+    same_metrics = torch.equal(metrics, torch.stack(want))
+    log(f"{head} b{batch}: {DRIVER_K} graphed steps vs {DRIVER_K} eager "
+        f"steps: {len(b) - len(differ)} of {len(b)} params/Adam tensors "
+        f"equal bit for bit (count {int(a['count'])} vs {int(b['count'])})"
+        f", per-step loss and PSNR equal: {same_metrics} "
+        f"({metrics[:, 0].tolist()})")
+    if differ or not same_metrics:
+        worst = {k: float((a[k].double() - b[k].double()).abs().max())
+                 for k in differ}
+        fail(f"{head}: graphed steps differ from eager ones: {worst}")
+
+
+def graphed_timing(args, cfg) -> None:
+    """Phase 11 (a), times at BATCH: the median of 3 dispatches of
+    DRIVER_K replays (a pre-staged, pinned payload; each ended by a
+    synchronize) over DRIVER_K, against the median of 5 eager steps on a
+    batch already on the card, after warm-up; one profiled dispatch,
+    whose launches of each kernel must be DRIVER_K times a replay's, and
+    one profiled eager step."""
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    head = label(cfg)
+    seed = args.seed + 1
+    batches = driver_batches(args.seed + 3, BATCH)
+    state, multi = new_train_state(cfg, args.seed), ts.make_train_multi(cfg)
+
+    def staged(i):
+        return ts.stage_call(cfg, batches, DRIVER_ITER0 + i * DRIVER_K,
+                             seed, pin=True)
+
+    multi(state, staged(0), DRIVER_ITER0, seed)              # capture
+    times = []
+    for i in range(1, 4):
+        call = staged(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(state, call, call.iter0, seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / DRIVER_K)
+    call = staged(4)
+    launches = profile_request(
+        lambda: multi(state, call, call.iter0, seed), (), None,
+        what=f"{head} graphed dispatch of {DRIVER_K} steps")
+    want = tuple(DRIVER_K * n for n in multi.captured.launches)
+    log(f"{head}: the profiled dispatch's kernels by the trace {launches}"
+        f", by the counters {want}")
+    # The profiler loses some kernel records of a graph replay (STP's
+    # gate backward: 1 and 4 of 252 in two runs on an H100, while the
+    # replays equal eager steps bit for bit), so the trace may show
+    # fewer launches than the counters, but never more, and every
+    # counted kernel.
+    if any(n > w or (w and not n) for n, w in zip(launches, want)):
+        fail(f"{head}: the profiled dispatch launched {launches}, the "
+             f"counters say {want}")
+    step = ts.make_train_step(cfg)
+    batch = tuple(torch.as_tensor(a[0], device="cuda") for a in batches)
+    eager_times = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch, i, sampling.generator(seed, i))
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t0)
+    profile_request(lambda: step(state, batch, 7,
+                                 sampling.generator(seed, 7)), (), None,
+                    what=f"{head} eager step")
+    g_ms = [x * 1e3 for x in times]
+    e_ms = [x * 1e3 for x in eager_times[2:]]
+    log(f"{head} train b{BATCH}: graphed ms/step {g_ms} (median "
+        f"{np.median(g_ms):.3f}, dispatches of {DRIVER_K}); eager ms/step "
+        f"{e_ms} (median {np.median(e_ms):.3f}); capture "
+        f"{multi.captured.capture_s:.2f} s, graph pool "
+        f"{multi.captured.pool_bytes / 2**30:.3f} GiB")
+
+
+def driver_cli(args, models: str, data: str, *extra) -> list:
+    return ["--data_dir", data, "--train_val_split", DRIVER_SPLIT,
+            "--num_iterations", str(DRIVER_ITERS), "--batch_size",
+            str(BATCH), "--validation_interval", "2", "--save_interval",
+            "100", "--seed", str(args.seed), "--steps_per_call",
+            str(DRIVER_K), "--prefetch", "2", "--checkpointer", "torch",
+            "--graceful_preemption", "1", "--run_name", run_name("CDNA"),
+            "--output_dir", models, "--event_log_dir", models,
+            "--device", "cuda", *extra]
+
+
+def driver_child(args, models: str, data: str, log_path: str):
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = open(log_path, "a")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", DRIVER_CHILD,
+             *driver_cli(args, models, data)], cwd=root, stdout=out,
+            stderr=subprocess.STDOUT)
+    finally:
+        out.close()
+
+
+def wait_child(child, what: str, log_path: str) -> None:
+    try:
+        rc = child.wait(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"{what} exited {rc}:\n{tail}")
+
+
+def same_run_files(a: str, b: str) -> list:
+    """The files of run directory `b` that differ from `a`'s: the final
+    weights and optimizer state, array by array, and the four curves."""
+    differ = []
+    for name in ("training-final.npz", "state-final.npz"):
+        with np.load(os.path.join(a, name)) as x, \
+                np.load(os.path.join(b, name)) as y:
+            if sorted(x.files) != sorted(y.files) or not all(
+                    np.array_equal(x[k], y[k]) for k in x.files):
+                differ.append(name)
+    for name in ("losses", "psnr_all", "losses_valid", "psnr_all_valid"):
+        name = f"training-global_{name}.npy"
+        x, y = (np.load(os.path.join(d, name)) for d in (a, b))
+        if x.shape != y.shape or not np.array_equal(x, y):
+            differ.append(name)
+    return differ
+
+
+def driver_runs(args, tmp: str) -> tuple:
+    """Phase 11 (b): train_cli with K-step dispatch, prefetch and the
+    torch checkpointer on data on disk, under `deterministic`. The
+    uninterrupted run (in process; its launches are counted: 2 warm-up
+    steps and DRIVER_ITERS replays, and the validation sweeps' rollouts);
+    a train_cli process that gets a SIGTERM once its first epoch is
+    logged, checkpoints at the next dispatch boundary and exits 0, and
+    is started again with the same run name: its final npz files and
+    curves equal the uninterrupted run's bit for bit; and the run with
+    --lazy_load 1, whose final params equal them too. Returns the
+    uninterrupted run's directory and the data directory."""
+    from pivp_tpu_torch.data import synthetic
+    from pivp_tpu_torch.training import train_cli
+
+    data = os.path.join(tmp, "data")
+    synthetic.write_processed_dir(data, DRIVER_SEQUENCES, 10, 64, 64,
+                                  seed=args.seed)
+    full = os.path.join(tmp, "full")
+    with deterministic() as caught:
+        reset_counters()
+        t0 = time.perf_counter()
+        train_cli.main(driver_cli(args, full, data), standalone_mode=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    epochs = DRIVER_ITERS // DRIVER_EPOCH
+    n_val = DRIVER_SEQUENCES - int(float(DRIVER_SPLIT) * DRIVER_SEQUENCES)
+    sweeps = epochs // 2 * -(-n_val // BATCH)
+    check_counters(
+        f"CDNA train_cli --steps_per_call {DRIVER_K} ({DRIVER_ITERS} "
+        f"steps, 2 warm-up steps, {sweeps} validation batches) in "
+        f"{seconds:.1f} s", DRIVER_ITERS + 2 + sweeps, DRIVER_ITERS + 2)
+    log(f"CDNA driver run: ops without a deterministic implementation: "
+        f"{nondeterministic_ops(caught) or 'none'}")
+    full_dir = os.path.join(full, run_name("CDNA"))
+
+    pre = os.path.join(tmp, "preempted")
+    log_path = os.path.join(tmp, "child.log")
+    events = os.path.join(pre, f"{run_name('CDNA')}-events.jsonl")
+    t0 = time.perf_counter()
+    child = driver_child(args, pre, data, log_path)
+    try:
+        while child.poll() is None and not (
+                os.path.exists(events) and os.path.getsize(events)):
+            time.sleep(0.01)
+        if child.poll() is None:
+            child.send_signal(signal.SIGTERM)
+    finally:
+        wait_child(child, "the preempted train_cli", log_path)
+    pre_dir = os.path.join(pre, run_name("CDNA"))
+    stops = glob.glob(os.path.join(pre_dir, "training-preempt-itr*.npz"))
+    if len(stops) != 1:
+        fail(f"the SIGTERM did not preempt the run: {os.listdir(pre_dir)}")
+    stop = int(stops[0].rsplit("itr", 1)[1][:-4])
+    log(f"SIGTERM after epoch 1: the run checkpointed at iteration {stop} "
+        f"({'mid-epoch' if stop % DRIVER_EPOCH else 'at an epoch end'}) "
+        f"and exited 0 after {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    child = driver_child(args, pre, data, log_path)
+    wait_child(child, "the resumed train_cli", log_path)
+    differ = same_run_files(full_dir, pre_dir)
+    log(f"resumed with the same --run_name in {time.perf_counter() - t0:.1f}"
+        f" s: final npz and curves equal to the uninterrupted run's bit for "
+        f"bit: {not differ} {differ or ''}")
+    if differ:
+        fail(f"the resumed run differs from the uninterrupted one: {differ}")
+
+    lazy = os.path.join(tmp, "lazy")
+    with deterministic():
+        train_cli.main(driver_cli(args, lazy, data, "--lazy_load", "1"),
+                       standalone_mode=False)
+    differ = same_run_files(full_dir, os.path.join(lazy, run_name("CDNA")))
+    log(f"--lazy_load 1: final npz and curves equal bit for bit: "
+        f"{not differ} {differ or ''}")
+    if differ:
+        fail(f"the lazy_load run differs: {differ}")
+    return full, data
+
+
+def driver_profile(args, tmp: str, data: str) -> None:
+    """Phase 11 (c): --profile_dir on a 3-iteration train_cli run writes a
+    torch.profiler trace that holds the five kernels."""
+    from pivp_tpu_torch.training import train_cli
+
+    trace_dir = os.path.join(tmp, "trace")
+    models = os.path.join(tmp, "profiled")
+    train_cli.main(["--data_dir", data, "--train_val_split", DRIVER_SPLIT,
+                    "--num_iterations", "3", "--batch_size", str(BATCH),
+                    "--seed", str(args.seed), "--run_name",
+                    run_name("CDNA"), "--output_dir", models,
+                    "--event_log_dir", models, "--profile_dir", trace_dir,
+                    "--device", "cuda"], standalone_mode=False)
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"--profile_dir wrote {os.listdir(trace_dir)}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {n: sum(f"{n}<" in k for k in kernels) for n in CUDA_NAMES}
+    log(f"--profile_dir: {os.path.basename(traces[0])} "
+        f"({os.path.getsize(traces[0])} bytes, {len(kernels)} kernel "
+        f"events); the five kernels' events: {found}")
+    if not all(found.values()):
+        fail(f"the trace lacks a kernel: {found}")
+
+
+def driver_visualize(args, tmp: str, models: str, data: str) -> None:
+    """Phase 11 (d): visualize_cli on the uninterrupted run's directory
+    writes the loss curves and the enc0..enc7 activation grids and
+    projections (where matplotlib is installed; elsewhere the numbers
+    they draw, `visualize.model_activations`, are computed on the card
+    and the log says the drawing is left to the CPU); the captured
+    activations through the kernels lie within FRAME_TOL of the plain
+    ops'."""
+    import importlib.util
+
+    from pivp_tpu_torch.data import dataset
+    from pivp_tpu_torch.inference import predict
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.visualization import visualize, visualize_cli
+
+    checkpoint = os.path.join(models, run_name("CDNA"), "training-final.npz")
+    if importlib.util.find_spec("matplotlib") is not None:
+        figs = os.path.join(tmp, "figures")
+        written = visualize_cli.main(
+            [run_name("CDNA"), "--model_name", "training-final.npz",
+             "--models_dir", models, "--data_dir", data, "--out_dir", figs,
+             "--device", "cuda"], standalone_mode=False)
+        names = {os.path.basename(w) for w in written}
+        want = ({f"enc{i}-activation.png" for i in range(8)}
+                | {f"training-global_{n}.png" for n in (
+                    "losses", "psnr_all", "losses_valid", "psnr_all_valid")}
+                | {"enc0-projected-t0-output.png"})
+        log(f"visualize_cli: {len(written)} figures "
+            f"({sum(os.path.getsize(w) for w in written)} bytes)")
+        if want - names or not all(os.path.getsize(w) for w in written):
+            fail(f"visualize_cli wrote no {sorted(want - names)}")
+    else:
+        images, actions, states = (a[0, :5] for a in
+                                   dataset.load_sequences(data, limit=1))
+        acts = visualize.model_activations(checkpoint, "CDNA", images,
+                                           actions, states, device="cuda")
+        shapes = [a.shape for a in acts["conv_res_all"]]
+        finite = all(np.isfinite(a).all() for a in acts["conv_res_all"])
+        log(f"visualize: matplotlib is not installed on this host, so the "
+            f"PNG rendering of visualize_cli is held on the CPU only (CPU "
+            f"tests); its numbers on the card (model_activations): "
+            f"enc0..enc7 {shapes}, finite {finite}, projections of steps "
+            f"{list(acts['projected'])}")
+        if not finite or len(shapes) != 8:
+            fail("model_activations gave no finite enc0..enc7")
+    cfg, params = predict.load_model(checkpoint, "CDNA", 10, 2, True, -1.0,
+                                     64, 64, 5, device="cuda")
+    images, actions, states = (a[:5, :1] for a in synthetic_batch(
+        args.seed))
+    plain = dataclasses.replace(cfg, use_kernel=False,
+                                use_kernel_gates=False)
+    with torch.no_grad():
+        got, want_out = (predictor.rollout(params, c, images, actions,
+                                           states, capture=True)
+                         for c in (cfg, plain))
+    err = max(max_err(a, b) for a, b in zip(got["conv_res_all"],
+                                            want_out["conv_res_all"]))
+    log(f"visualize: enc0..enc7 captured through the kernels vs the plain "
+        f"ops: max abs {err:.3e} (limit {FRAME_TOL})")
+    if err > FRAME_TOL:
+        fail(f"captured activations differ by {err:.3e}")
+
+
+def driver_phase(args) -> None:
+    """Phase 11: the rest of the training driver (see the docstring)."""
+    for head in ("CDNA", "DNA", "STP"):
+        cfg = head_config(head)
+        graphed_vs_eager(args, cfg, DRIVER_CHECK_BATCH[head])
+        graphed_timing(args, cfg)
+        torch.cuda.empty_cache()
+    os.makedirs(args.out, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=args.out, prefix="driver-")
+    try:
+        models, data = driver_runs(args, tmp)
+        driver_profile(args, tmp, data)
+        driver_visualize(args, tmp, models, data)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1388,6 +1898,9 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.join("chiprun_out", "smoke"))
     ap.add_argument("--kernels_only", action="store_true",
                     help="stop after phase 3 (no JSON lines are printed)")
+    ap.add_argument("--driver_only", action="store_true",
+                    help="run phases 1, 2 and 11 only (no JSON lines are "
+                    "printed)")
     ap.add_argument("--bwd_x_rows", default="",
                     help="comma-separated tile heights: after phase 3, "
                     "time dX at the main shape with each")
@@ -1424,6 +1937,12 @@ def main() -> None:
     for line in info.ptxas:
         log(f"  ptxas {line}")
     phase_done("2 build")
+
+    if args.driver_only:
+        driver_phase(args)
+        phase_done("11 driver")
+        log(card)
+        return
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1470,6 +1989,11 @@ def main() -> None:
     # DNA and STP artifacts
     deploy_phase(args)
     phase_done("10 deploy")
+
+    # 11. the training driver: K-step dispatch as a CUDA graph, exact
+    # resume after a SIGTERM, lazy loading, profiling, visualization
+    driver_phase(args)
+    phase_done("11 driver")
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",

@@ -146,11 +146,11 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Training-loop configuration: the reference CLI's 19 flags (field
-    meanings as in the JAX package's TrainConfig) and the extras this
-    slice of the port has. Left out are the TPU and multi-host fields
+    meanings as in the JAX package's TrainConfig) and the JAX package's
+    extras. Left out are the TPU lowering, mesh and multi-host fields
     (`num_devices`, `spatial_parallel`, `pad_gate_convs`, `scan_unroll`,
-    `steps_per_call`, `use_pallas`, `checkpointer`,
-    `graceful_preemption`, `prefetch`, `lazy_load`)."""
+    `use_pallas`): one GPU runs the whole batch, and `use_kernel` /
+    `use_kernel_gates` take `use_pallas`'s place."""
 
     data_dir: str = "data/processed/brain-robotics-data/push/push_train"
     output_dir: str = "models"
@@ -196,6 +196,28 @@ class TrainConfig:
     model_overrides: Tuple[Tuple[str, object], ...] = ()
     # Torch device of the run: "cuda" (default) or "cpu".
     device: str = "cuda"
+    # Optimizer steps per dispatch: 0 = auto (1), K > 1 = K steps per
+    # dispatch, on a GPU as replays of a CUDA graph of the train step.
+    steps_per_call: int = 0
+    # Input-pipeline prefetch depth: a daemon thread assembles (and, on
+    # a GPU, pins) the next dispatches' inputs. 0 = on the main thread.
+    prefetch: int = 2
+    # Read sequences from disk per batch instead of loading the whole
+    # data set into RAM.
+    lazy_load: bool = False
+    # "npz" (the reference artifact contract) or "torch": also a
+    # full-state checkpoint, atomically written, that a run started
+    # again with the same run name resumes from.
+    checkpointer: str = "npz"
+    # SIGTERM/SIGINT checkpoint at the next dispatch boundary and return.
+    graceful_preemption: bool = True
+
+    def __post_init__(self):
+        if self.checkpointer not in ("npz", "torch"):
+            raise ValueError(f"checkpointer must be npz or torch, got "
+                             f"{self.checkpointer!r}")
+        if self.steps_per_call < 0:
+            raise ValueError("steps_per_call must be >= 0")
 
     def model_config(self) -> ModelConfig:
         dtype = ("float32" if self.compute_dtype == "auto"

@@ -9,8 +9,9 @@ img_bitmap_pred_path, img_np_pred_path`, per-sequence
 `action_batch_j.npy` / `state_batch_j.npy` (T, 1, 5). Batches are
 NHWC and time-major (T, B, ...); an epoch-permuted index stream gives
 the semantics of chainer's SerialIterator (shuffled, without
-replacement, repeating). The lazy per-batch reader comes in a later
-slice.
+replacement, repeating). `lazy_sequences` reads each sequence from disk
+when a batch gathers it, so host memory holds one batch, not the data
+set.
 """
 
 from __future__ import annotations
@@ -58,6 +59,64 @@ def _squeeze_mid(x: np.ndarray) -> np.ndarray:
     """(T, 1, D) -> (T, D): the reference stores a singleton batch axis
     (make_dataset.py:78-81) squeezed at collation (train_model.py:64-66)."""
     return x[:, 0, :] if x.ndim == 3 and x.shape[1] == 1 else x
+
+
+class LazySequences:
+    """Array-like view over per-sequence .npy files that reads rows on
+    demand (one plain file read per gathered sequence).
+
+    `load_sequences` holds the whole data set in RAM, which caps its
+    size at host memory. This view has exactly the operations the
+    training pipeline uses (`len` / `.shape[0]`, contiguous slicing for
+    the train/val split, fancy-index row gathers for batching), so it
+    stands in for any of the three arrays while holding only the current
+    batch in memory."""
+
+    def __init__(self, paths: List[str], squeeze: bool = False):
+        if not paths:
+            raise ValueError("Empty dataset")
+        self._paths = list(paths)
+        self._squeeze = squeeze
+        first = self._load(0)
+        self.shape = (len(self._paths),) + first.shape
+        self.dtype = first.dtype
+
+    def _load(self, i: int) -> np.ndarray:
+        # Each file is one sequence and is read whole.
+        x = np.load(self._paths[i]).astype(np.float32, copy=False)
+        return _squeeze_mid(x) if self._squeeze else x
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            view = LazySequences.__new__(LazySequences)
+            view._paths = self._paths[idx]
+            view._squeeze = self._squeeze
+            view.shape = (len(view._paths),) + self.shape[1:]
+            view.dtype = self.dtype
+            return view
+        idx = np.asarray(idx)
+        if idx.ndim == 0:
+            return self._load(int(idx))
+        return np.stack([self._load(int(i)) for i in idx])
+
+
+def lazy_sequences(data_dir: str, limit: Optional[int] = None) -> Arrays:
+    """The deferred-read counterpart of `load_sequences`: three
+    LazySequences views with the same map.csv contract. Peak host memory
+    is one batch, not the data set."""
+    rows = load_map_csv(data_dir)[1:]
+    if limit:
+        rows = rows[:limit]
+    return (  # type: ignore[return-value]
+        LazySequences([os.path.join(data_dir, r[2]) for r in rows]),
+        LazySequences([os.path.join(data_dir, r[3]) for r in rows],
+                      squeeze=True),
+        LazySequences([os.path.join(data_dir, r[4]) for r in rows],
+                      squeeze=True),
+    )
 
 
 def train_val_split(arrays: Arrays, split: float = 0.95

@@ -133,8 +133,10 @@ def stp_head(params: Params, cfg: ModelConfig, enc6: torch.Tensor,
     synth = torch.sigmoid(enc7)
     feat = torch.relu(layers.dense(params["stp_input"],
                                    hidden5.reshape(b, -1)))
-    identity = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0],
-                            dtype=feat.dtype, device=feat.device)
+    # [1, 0, 0, 0, 1, 0], made on the device: a host tensor copied to
+    # the GPU inside the step would be a copy a CUDA graph cannot capture.
+    identity = torch.eye(2, 3, dtype=feat.dtype,
+                         device=feat.device).reshape(6)
     ip = params["identity_params"]
     if cfg.stp_shared_params:
         # One shared projection makes every warp the same: warp once and

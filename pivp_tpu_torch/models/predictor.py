@@ -278,6 +278,8 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
             actions: torch.Tensor, states: torch.Tensor, *,
             train: bool = False, iter_num: int = 0,
             generator: Optional[torch.Generator] = None,
+            uniforms: Optional[torch.Tensor] = None,
+            n_ground_truth=None,
             remat: bool = False, capture: bool = False,
             keys: Optional[Sequence[str]] = None
             ) -> Dict[str, torch.Tensor]:
@@ -288,6 +290,9 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
     `cfg.scheduled_sampling_k == -1`): `iter_num` sets the count, and
     the (T-1, B) uniforms are drawn once from `generator` (a CPU
     generator; seed 0 when None) and moved to the device in one copy.
+    `uniforms` (on the device) and `n_ground_truth` (an int or a 0-d
+    device tensor) replace the draw and the count, so that a captured
+    CUDA graph can read both from its static inputs.
 
     Returns the JAX package's dict: loss, psnr_all, gen_images
     (T-1, B, H, W, C), gen_states, per-frame recon/psnr/state curves,
@@ -298,14 +303,19 @@ def rollout(params: Params, cfg: ModelConfig, images: torch.Tensor,
     the reference's Model.conv_res) and `conv_res_all` (every step's,
     each (T-1, B, ...))."""
     t_total, batch = images.shape[0], images.shape[1]
-    n_gt, uniforms = 0, None
+    n_gt = 0
     if train and cfg.scheduled_sampling_k != -1:
-        n_gt = sampling.num_ground_truth(batch, cfg.scheduled_sampling_k,
-                                         iter_num)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        uniforms = to_device(torch.rand((t_total - 1, batch),
-                                        generator=generator), images.device)
+        n_gt = (sampling.num_ground_truth(batch, cfg.scheduled_sampling_k,
+                                          iter_num)
+                if n_ground_truth is None else n_ground_truth)
+        if uniforms is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            uniforms = to_device(torch.rand((t_total - 1, batch),
+                                            generator=generator),
+                                 images.device)
+    else:
+        uniforms = None
     frames = rollout_frames(
         params, cfg, images, actions, states, n_ground_truth=n_gt,
         uniforms=uniforms, remat=remat, capture=capture)

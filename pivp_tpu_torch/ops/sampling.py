@@ -6,7 +6,8 @@ the generated one, through a random ranking and a `torch.where`, so the
 mix stays on the device and differentiable through the generated rows.
 
 The count is computed on the host from the Python iteration number, so
-no step waits on the device for it. The uniforms come from an explicit
+no step waits on the device for it; a captured train step reads it from
+a device tensor that the host fills. The uniforms come from an explicit
 `torch.Generator`; torch cannot reproduce `jax.random`'s streams, so the
 two packages agree on the mix only where it is deterministic (no
 sampling, n_gt = 0 or n_gt = B).
@@ -30,10 +31,12 @@ def num_ground_truth(batch_size: int, k: float, iter_num: float) -> int:
 
 
 def scheduled_sample(uniforms: torch.Tensor, ground_truth: torch.Tensor,
-                     generated: torch.Tensor, n_ground_truth: int,
+                     generated: torch.Tensor, n_ground_truth,
                      detach_sampled: bool = False) -> torch.Tensor:
     """Mix exactly `n_ground_truth` rows of ground truth (those whose
-    uniform ranks below it) with generated rows for the rest.
+    uniform ranks below it) with generated rows for the rest. The count
+    is an int, or a 0-d tensor on the uniforms' device (what a captured
+    train step reads).
 
     uniforms: (B,); ground_truth / generated: (B, ...).
     `detach_sampled=True` blocks gradients through the mixed result (the

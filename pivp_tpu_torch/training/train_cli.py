@@ -1,11 +1,15 @@
 """Training CLI of the PyTorch port: the reference entry point's 19 flags
-(names, types, defaults) as the JAX package's `train_cli` has them, the
-extras of that CLI this slice has (--seed, --compute_dtype,
---lstm_gate_compute, --remat, --fused_cdna, --merge_output_convs,
---u8_transfer, --grad_accum, --synthetic, --run_name,
---reference_literal), the kernel switches --use_kernel /
---use_kernel_gates in place of --use_pallas, --image_height /
---image_width, and --device (default cuda).
+(names, types, defaults) as the JAX package's `train_cli` has them, that
+CLI's extras (--seed, --compute_dtype, --lstm_gate_compute, --remat,
+--fused_cdna, --merge_output_convs, --u8_transfer, --grad_accum,
+--steps_per_call, --prefetch, --lazy_load, --synthetic, --profile_dir,
+--checkpointer {npz,torch} in place of {npz,orbax}, --run_name,
+--graceful_preemption, --reference_literal), the kernel switches
+--use_kernel / --use_kernel_gates in place of --use_pallas,
+--image_height / --image_width, and --device (default cuda). Left out
+are the TPU and multi-host flags (--num_devices, --spatial_parallel,
+--scan_unroll, --pad_gate_convs, --use_pallas, --coordinator_address,
+--num_processes, --process_id).
 
 Usage: python -m pivp_tpu_torch.training.train_cli [OPTIONS]
 """
@@ -93,10 +97,33 @@ from pivp_tpu_torch.utils import logging_utils
 @click.option('--grad_accum', type=click.INT, default=1,
               help='Gradient-accumulation microbatches per step (exact '
                    'for the mean loss).')
+@click.option('--steps_per_call', type=click.INT, default=0,
+              help='Optimizer steps per dispatch. 0 = auto (1); K > 1 '
+                   'runs K steps a dispatch, on the GPU as replays of a '
+                   'CUDA graph of the train step.')
+@click.option('--prefetch', type=click.INT, default=2,
+              help='Input-pipeline prefetch depth (0 = assemble batches '
+                   'on the main thread).')
+@click.option('--lazy_load', type=click.INT, default=0,
+              help='Read sequences from disk per batch instead of '
+                   'loading the whole dataset into RAM.')
 @click.option('--synthetic', type=click.INT, default=0,
               help='Train on N synthetic sequences instead of data_dir.')
+@click.option('--profile_dir', type=click.Path(), default='',
+              help='If set, write a torch.profiler trace of the WHOLE '
+                   'run there (keep num_iterations small).')
+@click.option('--checkpointer', type=click.Choice(['npz', 'torch']),
+              default='npz',
+              help='npz = reference artifact contract; torch adds an '
+                   'atomic full-state checkpoint and auto-resume.')
 @click.option('--run_name', type=click.STRING, default='',
-              help='Run directory name (default: timestamped).')
+              help='Run directory name (default: timestamped). Reuse a '
+                   'name with --checkpointer torch to resume that run.')
+@click.option('--graceful_preemption', type=click.INT, default=1,
+              help='Catch SIGTERM/SIGINT, checkpoint at the next dispatch '
+                   'boundary and exit cleanly; with --checkpointer torch '
+                   'the next launch resumes from the exact optimizer '
+                   'step.')
 @click.option('--reference_literal', type=click.INT, default=0,
               help='Train with the reference Chainer implementation\'s '
                    'LITERAL semantics (detached scheduled sampling, '
@@ -111,7 +138,9 @@ def main(data_dir, output_dir, event_log_dir, num_iterations,
          validation_interval, save_interval, debug, seed, image_height,
          image_width, compute_dtype, lstm_gate_compute, remat, use_kernel,
          use_kernel_gates, fused_cdna, merge_output_convs, u8_transfer,
-         grad_accum, synthetic, run_name, reference_literal, device):
+         grad_accum, steps_per_call, prefetch, lazy_load, synthetic,
+         profile_dir, checkpointer, run_name, graceful_preemption,
+         reference_literal, device):
     """Train the video prediction model on processed robot-push data."""
     logging_utils.setup_logging(
         logging.DEBUG if debug else logging.INFO)
@@ -137,6 +166,9 @@ def main(data_dir, output_dir, event_log_dir, num_iterations,
         merge_output_convs=bool(merge_output_convs),
         u8_transfer=bool(u8_transfer), grad_accum=grad_accum,
         reference_literal=bool(reference_literal), device=device,
+        steps_per_call=steps_per_call, prefetch=prefetch,
+        lazy_load=bool(lazy_load), checkpointer=checkpointer,
+        graceful_preemption=bool(graceful_preemption),
     )
 
     mcfg = cfg.model_config()
@@ -158,9 +190,11 @@ def main(data_dir, output_dir, event_log_dir, num_iterations,
         logger.info('Using %d synthetic sequences', synthetic)
 
     from pivp_tpu_torch.training import loop
+    from pivp_tpu_torch.utils import profiling
 
-    result = loop.run_training(cfg, arrays=arrays,
-                               run_name=run_name or None)
+    with profiling.trace(profile_dir):
+        result = loop.run_training(cfg, arrays=arrays,
+                                   run_name=run_name or None)
     logger.info('Done; checkpoints in %s', result["save_dir"])
     return result
 

@@ -6,7 +6,9 @@ file imports no JAX, so it also runs where JAX is not installed; run it
 there with `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
 (the repo's conftest.py sets JAX up)."""
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -332,3 +334,156 @@ def test_artifact_frames_equal_make_serve_fn_on_the_card(cuda, head,
         torch.backends.cudnn.deterministic = deterministic
     assert got.device.type == "cuda" and got.dtype == torch.uint8
     assert torch.equal(got, want)
+
+
+def _graph_setup(cuda, head):
+    from pivp_tpu_torch.data import synthetic
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg = ModelConfig(image_height=32, image_width=32, sequence_length=5,
+                      **head)
+
+    def state():
+        params = predictor.init_params(torch.Generator().manual_seed(0),
+                                       cfg, device=cuda)
+        return ts.create_train_state(params, ts.make_optimizer(1e-3))
+
+    imgs, acts, stas = synthetic.generate_sequences(4, 5, 32, 32, seed=1)
+    batches = tuple(np.stack([a[2 * i:2 * i + 2].swapaxes(0, 1)
+                              for i in range(2)])
+                    for a in (imgs, acts, stas))
+    u8 = np.clip(batches[0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return cfg, state, (u8,) + batches[1:]
+
+
+@pytest.mark.parametrize("head", [{}, dict(model_type="STP")],
+                         ids=["CDNA", "STP"])
+def test_graphed_steps_equal_eager_steps_on_the_card(cuda, head):
+    """Two steps at b2 as replays of the captured train step equal two
+    eager steps bit for bit under cudnn.deterministic: parameters, Adam
+    state and per-step metrics; the counters see each replay launch the
+    captured kernels."""
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg, new_state, batches = _graph_setup(cuda, head)
+    it0, seed = 6100, 3
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, step = new_state(), ts.make_train_step(cfg)
+        want = []
+        for i in range(2):
+            batch = tuple(torch.as_tensor(a[i], device=cuda)
+                          for a in batches)
+            _, m = step(eager, batch, it0 + i,
+                        sampling.generator(seed, it0 + i))
+            want.append((m["loss"], m["psnr_all"]))
+        graphed, multi = new_state(), ts.make_train_multi(cfg)
+        counters = ts._launch_counters()
+        before = [fn.launches for fn in counters]
+        _, got = multi(graphed, batches, it0, seed)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    local = 0 if cfg.is_stp else 4
+    assert multi.captured.launches == (local, 28, local, local, 28)
+    # Two warm-up steps run eagerly before the capture, then two replays.
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        4 * n for n in multi.captured.launches]
+    assert multi.captured.capture_s > 0 and multi.captured.pool_bytes > 0
+    assert graphed.step == eager.step == 2
+    for x, y in zip(graphed.leaves(), eager.leaves()):
+        assert torch.equal(x, y)
+    for key, x in ts.weights.flatten(ts.opt_state_tree(graphed)).items():
+        assert torch.equal(x, ts.weights.flatten(
+            ts.opt_state_tree(eager))[key]), key
+    for i, (loss, psnr) in enumerate(want):
+        assert torch.equal(got["loss"][i], loss)
+        assert torch.equal(got["psnr_all"][i], psnr)
+
+
+@contextlib.contextmanager
+def _thread_querying_events():
+    """A thread that, until the block ends, makes the CUDA calls the
+    loop's prefetch thread makes while it pins payloads: pinned
+    allocations and event queries (the host allocator's). Yields a list
+    that holds the thread's round count and then any error it met."""
+    stop, out = threading.Event(), [0]
+    event = torch.cuda.Event()
+    event.record(torch.cuda.Stream())
+
+    def run():
+        try:
+            while not stop.is_set():
+                torch.empty(1 << 16, dtype=torch.uint8, pin_memory=True)
+                event.query()
+                out[0] += 1
+        except Exception as e:  # handed to the test, which fails on it
+            out.append(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+
+
+def test_capture_survives_another_thread_querying_events(cuda):
+    """The train step is captured while another thread pins buffers and
+    queries events, as the loop's prefetch thread does during a run's
+    first dispatch; the replays still equal a capture made alone."""
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg, new_state, batches = _graph_setup(cuda, {})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = new_state()
+        _, want = ts.make_train_multi(cfg)(alone, batches, 0, 0)
+        busy, multi = new_state(), ts.make_train_multi(cfg)
+        with _thread_querying_events() as thread:
+            _, got = multi(busy, batches, 0, 0)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert thread[0] > 0 and thread[1:] == []
+    assert torch.equal(got["loss"], want["loss"])
+    for x, y in zip(busy.leaves(), alone.leaves()):
+        assert torch.equal(x, y)
+
+
+def test_step_timer_times_the_device(cuda):
+    from pivp_tpu_torch.utils import profiling
+
+    timer = profiling.StepTimer(cuda)
+    x = torch.randn(1024, 1024, device=cuda)
+    for _ in range(3):
+        timer.start()
+        x = x @ x / 1024
+        timer.stop()
+    summary = timer.summary()
+    assert summary["steps"] == 3 and summary["min_s"] > 0
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A step that cannot be captured (here: it reads a value back to the
+    host) raises; the dispatch does not fall back to eager steps. Last in
+    the file: a failed capture can leave the device's stream state
+    behind."""
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg, new_state, batches = _graph_setup(cuda, {})
+    apply = ts._apply
+
+    def syncing(state, grads):
+        float(grads[0].sum())
+        apply(state, grads)
+
+    monkeypatch.setattr(ts, "_apply", syncing)
+    state = new_state()
+    with pytest.raises(RuntimeError):
+        ts.make_train_multi(cfg)(state, batches, 0, 0)
+    assert state.step == 0
