@@ -85,6 +85,27 @@ shared affine projection, then one per mask), in phases:
               visualize_cli on (b)'s run directory: loss curves and the
               enc0..enc7 grids and projections; the captured activations
               through the kernels within FRAME_TOL of the plain ops'.
+ 12. data     the data path. (a) 24 raw TFRecord shards of 4 records
+              (T=10 JPEG frames of 640x512, moving squares drawn with
+              PIL from --seed, 5-float actions and states under the push
+              dataset's keys), written by the port's writer. (b) python
+              -m pivp_tpu_torch.data.make_dataset_cli --sequences_per_file
+              0: 96 map.csv rows, the npy shapes, 24 native scanner calls;
+              then the default --sequences_per_file 1 on four shards: 4
+              rows. (c) build_features writes features.json. (d)
+              train_cli on the converted directory, CDNA b32,
+              --steps_per_call 4 --prefetch 2, 8 iterations, as a world-1
+              NCCL process group (--coordinator_address 127.0.0.1:<port>
+              --num_processes 1 --process_id 0): 9/9/9/63/63 launches a
+              step, 2 native assembler calls, and final npz and curves
+              equal to the same run without the group, bit for bit under
+              phase 11's deterministic settings. (e) Two gloo ranks on
+              the card (spawned), b16 each, one step of the b32 global
+              batch with the same sampling inputs: their all-reduced
+              gradient within GRAD_TOL of the one-rank b32 step's over
+              the whole gradient. (f) utils/flops' count of the CDNA b32
+              train step beside rollout_flops's, and the float32 peak
+              share of phase 11's graphed step.
 
 Each phase prints its seconds. Any failure exits non-zero. The last
 lines are a `kernels` JSON line (the forward kernels' launches are the
@@ -98,9 +119,15 @@ calls on the same inputs, which stay in the 50 MB L2) and cold
 writing its own output). The cold time is the one to hold against the
 bound, which counts every byte from and to device memory.
 
+Phase 3 also runs the library call that computes each gate kernel's
+function, aten's fused LSTM cell (`_thnn_fused_lstm_cell` and its
+backward) on the gates permuted to its (i, f, g, o) order, checks it
+against the kernel and times it warm and cold (`library_ms`,
+`library_cold_ms`).
+
 Usage: python3 chip_smoke.py [--seed 0] [--requests 3] [--train_steps 3]
                              [--out DIR] [--kernels_only] [--driver_only]
-                             [--bwd_x_rows 2,4,8]
+                             [--data_only] [--bwd_x_rows 2,4,8]
 """
 
 from __future__ import annotations
@@ -123,6 +150,9 @@ import warnings
 # with a fixed workspace, which has to be set before its first use
 # (phase 11 runs under those settings).
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# Phase 12's process groups are on this host: NCCL's bootstrap on the
+# loopback interface.
+os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -221,6 +251,17 @@ DRIVER_CHILD = (
     "torch.use_deterministic_algorithms(True, warn_only=True); "
     "from pivp_tpu_torch.training import train_cli; "
     "train_cli.main(sys.argv[1:])")
+
+
+# Phase 12: DATA_SHARDS raw shards of DATA_PER_SHARD records, each of
+# T=10 frames at the push dataset's 640x512 (JPEG) with 5-float actions
+# and states under its keys; DATA_ITERS iterations of CDNA b32 on the
+# converted directory, K = DRIVER_K.
+DATA_SHARDS, DATA_PER_SHARD = 24, 4
+DATA_FRAME = (512, 640)                       # (height, width)
+DATA_ITERS = 8
+# Numbers measured by one phase that a later one prints beside its own.
+MEASURED = {}
 
 
 def fail(msg: str) -> None:
@@ -385,7 +426,7 @@ def check_local_apply(gen: torch.Generator) -> dict:
             "replaces": "pivp_tpu/ops/pallas/local_apply.py:106",
             "max_abs_err": main_err, "ms": ms, "cold_ms": cold,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None, "library_cold_ms": None}
 
 
 def gate_inputs(shape, dtype, gen: torch.Generator, n: int) -> tuple:
@@ -398,12 +439,68 @@ def gate_inputs(shape, dtype, gen: torch.Generator, n: int) -> tuple:
         for _ in range(n))
 
 
+def ifgo_rows(gates: torch.Tensor) -> torch.Tensor:
+    """Gate pre-activations (..., 4C) in the port's (j, i, f, o) blocks
+    as the rows x 4C (i, f, g, o) blocks of aten's fused LSTM cell (g is
+    j, the candidate): what permuting the gate conv's output channels
+    once at load would make the conv write."""
+    j, i, f, o = gates.chunk(4, dim=-1)
+    return torch.cat([i, f, j, o], dim=-1).reshape(-1, gates.shape[-1])
+
+
+def jifo(grad_rows: torch.Tensor, shape) -> torch.Tensor:
+    """aten's (i, f, g, o) gate gradients back in the (j, i, f, o)
+    blocks of `shape`."""
+    i, f, g, o = grad_rows.chunk(4, dim=-1)
+    return torch.cat([g, i, f, o], dim=-1).reshape(shape)
+
+
+def lstm_cell_biases(c: int, forget_bias: float) -> tuple:
+    """aten's (input_bias, hidden_bias) for the port's forget bias: fb on
+    the f block of the first, zeros (its CUDA kernel takes both biases
+    or neither)."""
+    bias = torch.zeros(4 * c, device="cuda")
+    bias[c:2 * c] = forget_bias
+    return bias, torch.zeros_like(bias)
+
+
+def aten_cell(gates: torch.Tensor, c: torch.Tensor) -> tuple:
+    """(input_gates, hidden_gates (zeros), cx, input_bias, hidden_bias)
+    of aten's fused LSTM cell for the port's gates (B, H, W, 4C) and
+    carry c (forget bias 1)."""
+    ig = ifgo_rows(gates).contiguous()
+    return ((ig, torch.zeros_like(ig), c.reshape(ig.shape[0], -1))
+            + lstm_cell_biases(c.shape[-1], 1.0))
+
+
+def aten_cell_inputs(shape, gen: torch.Generator) -> tuple:
+    """aten_cell's inputs for one port cell of `shape` (B, H, W, C)."""
+    return aten_cell(*gate_inputs(shape, torch.float32, gen, 1))
+
+
+def aten_cell_bwd_inputs(shape, gen: torch.Generator) -> tuple:
+    """(grad_hy, grad_cy, cx, cy, workspace) of aten's fused LSTM cell
+    backward, the forward run on the inputs of `aten_cell_inputs`."""
+    inputs = aten_cell_inputs(shape, gen)
+    cx = inputs[2]
+    _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(*inputs)
+    g_c, g_h = (torch.randn(cx.shape, generator=gen, device="cuda")
+                for _ in range(2))
+    return g_h, g_c, cx, cy, ws
+
+
+def aten_cell_bwd(g_h, g_c, cx, cy, ws):
+    return torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+        g_h, g_c, cx, cy, ws, False)
+
+
 def check_lstm_gates(gen: torch.Generator) -> dict:
     from pivp_tpu_torch.ops.kernels import lstm_gates as lg
 
     worst = 0.0
     step_ms = step_cold = step_plain_ms = step_call_ms = 0.0
     step_bytes = step_ops = 0.0
+    lib_ms = lib_cold = 0.0
     for n_cells, h, w, c in GATE_CELLS:
         for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
             gates, cc = gate_inputs((BATCH, h, w, c), dtype, gen, 1)
@@ -437,16 +534,44 @@ def check_lstm_gates(gen: torch.Generator) -> dict:
                 # Per element: 3 sigmoids (negate, exp, add, divide), 2
                 # tanh, the forget-bias add and 4 multiply/adds.
                 step_ops += n_cells * 19 * elems
+                # The library's fused LSTM cell on the permuted gates
+                # (hidden gates zero, the forget bias as its input bias):
+                # the same new_c and new_h first, then its times.
+                lib = aten_cell(gates, cc)
+                hy, cy, _ = torch.ops.aten._thnn_fused_lstm_cell(*lib)
+                new_c, new_h = lg.fused_lstm_gates(gates, cc, 1.0)
+                torch.cuda.synchronize()
+                err = max(max_err(cy, new_c.reshape(cy.shape)),
+                          max_err(hy, new_h.reshape(hy.shape)))
+                log(f"lstm_gates ({BATCH},{h},{w},{c}): aten "
+                    f"_thnn_fused_lstm_cell vs the kernel on the permuted "
+                    f"gates: max abs {err:.3e} (tol 1e-6)")
+                if not (close(cy, new_c.reshape(cy.shape), 1e-6)
+                        and close(hy, new_h.reshape(hy.shape), 1e-6)):
+                    fail(f"aten fused LSTM cell differs from lstm_gates at "
+                         f"{(h, w, c)}: {err}")
+                lib_ms += n_cells * cuda_ms(
+                    lambda: torch.ops.aten._thnn_fused_lstm_cell(*lib),
+                    graph=True)
+                lib_cold += n_cells * cold_ms(
+                    lambda *a: torch.ops.aten._thnn_fused_lstm_cell(*a),
+                    lambda: aten_cell_inputs((BATCH, h, w, c), gen),
+                    9 * elems * 4)
     bms, by = bound_ms(step_bytes, step_ops)
     log(time_line(f"lstm_gates, the {GATE_LAUNCHES_PER_STEP} cells of one "
                   f"timestep at b{BATCH} f32 (sums)", step_ms, step_cold,
                   step_plain_ms, bms, by, step_call_ms))
+    log(f"lstm_gates: library call aten::_thnn_fused_lstm_cell, the "
+        f"{GATE_LAUNCHES_PER_STEP} cells (sums): {lib_ms * 1e3:.2f} us warm, "
+        f"{lib_cold * 1e3:.2f} us cold; kernel {step_ms * 1e3:.2f} / "
+        f"{step_cold * 1e3:.2f} us ({step_cold / lib_cold:.2f}x the "
+        f"library's cold time)")
     return {"name": "fused_lstm_gates", "route": "cuda",
             "source": "pivp_tpu_torch/csrc/lstm_gates.cu",
             "replaces": "pivp_tpu/ops/pallas/lstm_gates.py:107",
             "max_abs_err": worst, "ms": step_ms, "cold_ms": step_cold,
             "plain_ms": step_plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": lib_ms, "library_cold_ms": lib_cold}
 
 
 def check_local_apply_bwd(gen: torch.Generator) -> list:
@@ -508,7 +633,8 @@ def check_local_apply_bwd(gen: torch.Generator) -> list:
          "max_abs_err": rows[name]["err"], "ms": rows[name]["ms"],
          "cold_ms": rows[name]["cold_ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bms"],
-         "bound_by": rows[name]["by"], "library_ms": None}
+         "bound_by": rows[name]["by"], "library_ms": None,
+         "library_cold_ms": None}
         for name, line in (("dW", 247), ("dX", 293))]
 
 
@@ -549,6 +675,7 @@ def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
     worst = 0.0
     step_ms = step_cold = step_plain_ms = step_call_ms = 0.0
     step_bytes = step_ops = 0.0
+    lib_ms = lib_cold = 0.0
     for n_cells, h, w, c in GATE_CELLS:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             shape = (BATCH, h, w, c)
@@ -587,16 +714,47 @@ def check_lstm_gates_bwd(gen: torch.Generator) -> dict:
                 # Per element: the forward's 19 operations again, then
                 # dct (4), the four gate derivatives (12) and dc (1).
                 step_ops += n_cells * 36 * elems
+                # The library's backward of its fused cell, from its
+                # forward's workspace: the kernel's dgates and dc first.
+                fwd = aten_cell(gates, cc)
+                cx = fwd[2]
+                _, cy, ws = torch.ops.aten._thnn_fused_lstm_cell(*fwd)
+                lib = (g_h.reshape(cx.shape), g_c.reshape(cx.shape), cx, cy,
+                       ws)
+                dg_lib, dc_lib, _ = aten_cell_bwd(*lib)
+                dg, dc = lg.fused_lstm_gates_bwd(gates, cc, g_c, g_h, 1.0)
+                dg_lib = jifo(dg_lib, dg.shape)
+                torch.cuda.synchronize()
+                err = max(max_err(dg_lib, dg), max_err(dc_lib,
+                                                       dc.reshape(cx.shape)))
+                log(f"lstm_gates bwd {shape}: aten "
+                    f"_thnn_fused_lstm_cell_backward_impl vs the kernel: max "
+                    f"abs {err:.3e} (tol 1e-6)")
+                if not (close(dg_lib, dg, 1e-6)
+                        and close(dc_lib, dc.reshape(cx.shape), 1e-6)):
+                    fail(f"aten fused LSTM cell backward differs from "
+                         f"lstm_gates bwd at {(h, w, c)}: {err}")
+                lib_ms += n_cells * cuda_ms(lambda: aten_cell_bwd(*lib),
+                                            graph=True)
+                lib_cold += n_cells * cold_ms(
+                    aten_cell_bwd,
+                    lambda: aten_cell_bwd_inputs(shape, gen),
+                    8 * elems * 4)
     bms, by = bound_ms(step_bytes, step_ops)
     log(time_line(f"lstm_gates bwd, the {GATE_LAUNCHES_PER_STEP} cells of one "
                   f"timestep at b{BATCH} f32 (sums)", step_ms, step_cold,
                   step_plain_ms, bms, by, step_call_ms))
+    log(f"lstm_gates bwd: library call aten::"
+        f"_thnn_fused_lstm_cell_backward_impl, the {GATE_LAUNCHES_PER_STEP} "
+        f"cells (sums): {lib_ms * 1e3:.2f} us warm, {lib_cold * 1e3:.2f} us "
+        f"cold; kernel {step_ms * 1e3:.2f} / {step_cold * 1e3:.2f} us "
+        f"({step_cold / lib_cold:.2f}x the library's cold time)")
     return {"name": "fused_lstm_gates_bwd", "route": "cuda",
             "source": "pivp_tpu_torch/csrc/lstm_gates.cu",
             "replaces": "pivp_tpu/ops/pallas/lstm_gates.py:140",
             "max_abs_err": worst, "ms": step_ms, "cold_ms": step_cold,
             "plain_ms": step_plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": lib_ms, "library_cold_ms": lib_cold}
 
 
 def profile_request(serve, request, trace_path, what="request") -> tuple:
@@ -645,12 +803,12 @@ def profile_request(serve, request, trace_path, what="request") -> tuple:
     return tuple(launches)
 
 
-def rollout_flops(params, cfg, batch: int) -> float:
+def rollout_layer_flops(params, cfg, batch: int) -> dict:
     """Operations (2 per multiply-add) of the convs, deconvs and dense
-    layers of one feed-self rollout of T-1 steps, from the weight
-    shapes: a conv is counted over its output grid, a transposed conv
-    over its input grid, a dense layer once per sample. (STP's sampler
-    products are not counted.)"""
+    layers of one feed-self rollout of T-1 steps, by layer, from the
+    weight shapes: a conv is counted over its output grid, a transposed
+    conv over its input grid, a dense layer once per sample. (The local
+    apply and STP's sampler products are not counted.)"""
     h, w = cfg.image_height, cfg.image_width
     r0, r1, r2, r3 = (h * w, h * w // 4, h * w // 16, h * w // 64)
     grid = {"enc0": r1, "enc1": r2, "enc2": r3, "enc3": r3, "enc4": r3,
@@ -661,16 +819,22 @@ def rollout_flops(params, cfg, batch: int) -> float:
             "head/identity_params": 1}
     from pivp_tpu_torch.utils import weights
 
-    def grid_of(layer: str) -> int:
-        # A per-mask STP projection is keyed head/identity_params/<i>.
-        if layer.startswith("head/identity_params/"):
-            layer = "head/identity_params"
-        return grid[layer]
+    out = {}
+    for k, v in weights.flatten(params).items():
+        if k.endswith("/w"):
+            layer = k[:-2]
+            # A per-mask STP projection is keyed head/identity_params/<i>.
+            if layer.startswith("head/identity_params/"):
+                layer = "head/identity_params"
+            out[layer] = out.get(layer, 0) + (2 * batch * grid[layer]
+                                              * v.numel()
+                                              * (cfg.sequence_length - 1))
+    return out
 
-    per_step = sum(2 * batch * grid_of(k[:-2]) * v.numel()
-                   for k, v in weights.flatten(params).items()
-                   if k.endswith("/w"))
-    return per_step * (cfg.sequence_length - 1)
+
+def rollout_flops(params, cfg, batch: int) -> float:
+    """`rollout_layer_flops` summed over the layers."""
+    return sum(rollout_layer_flops(params, cfg, batch).values())
 
 
 def _counted():
@@ -1489,8 +1653,7 @@ def driver_batches(seed: int, batch: int, k: int = DRIVER_K) -> tuple:
     """k time-major batches stacked (k, T, B, ...), frames as uint8 (what
     the loop stages with u8_transfer), on the host."""
     from pivp_tpu_torch.config import ModelConfig
-    from pivp_tpu_torch.data import synthetic
-    from pivp_tpu_torch.training import loop
+    from pivp_tpu_torch.data import assembler, synthetic
 
     cfg = ModelConfig()
     imgs, acts, stas = synthetic.generate_sequences(
@@ -1499,7 +1662,7 @@ def driver_batches(seed: int, batch: int, k: int = DRIVER_K) -> tuple:
     stacked = tuple(np.stack([a[i * batch:(i + 1) * batch].swapaxes(0, 1)
                               for i in range(k)])
                     for a in (imgs, acts, stas))
-    return (loop._quantize_images(stacked[0]),) + stacked[1:]
+    return (assembler.quantize_images(stacked[0]),) + stacked[1:]
 
 
 def new_train_state(cfg, seed: int):
@@ -1643,6 +1806,7 @@ def graphed_timing(args, cfg) -> None:
                     what=f"{head} eager step")
     g_ms = [x * 1e3 for x in times]
     e_ms = [x * 1e3 for x in eager_times[2:]]
+    MEASURED[f"graphed_ms/{head}"] = float(np.median(g_ms))
     log(f"{head} train b{BATCH}: graphed ms/step {g_ms} (median "
         f"{np.median(g_ms):.3f}, dispatches of {DRIVER_K}); eager ms/step "
         f"{e_ms} (median {np.median(e_ms):.3f}); capture "
@@ -1889,6 +2053,340 @@ def driver_phase(args) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def push_frames(rng: np.random.RandomState, t: int) -> list:
+    """t JPEG frames of the push dataset's size: two squares moving over
+    a textured table, drawn with PIL."""
+    import io
+
+    from PIL import Image, ImageDraw
+
+    h, w = DATA_FRAME
+    base = Image.fromarray(rng.randint(90, 140, (h // 8, w // 8, 3))
+                           .astype(np.uint8)).resize((w, h))
+    squares = [(rng.randint(0, w - 120), rng.randint(0, h - 120),
+                rng.randint(-25, 26), rng.randint(-25, 26),
+                tuple(int(v) for v in rng.randint(0, 256, 3)))
+               for _ in range(2)]
+    out = []
+    for i in range(t):
+        img = base.copy()
+        draw = ImageDraw.Draw(img)
+        for x, y, dx, dy, color in squares:
+            x0 = int(np.clip(x + i * dx, 0, w - 120))
+            y0 = int(np.clip(y + i * dy, 0, h - 120))
+            draw.rectangle((x0, y0, x0 + 119, y0 + 119), fill=color)
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def write_raw_shards(raw: str, seed: int) -> int:
+    """Phase 12 (a): DATA_SHARDS shards of DATA_PER_SHARD push records
+    with the port's writer. Returns the bytes written."""
+    from pivp_tpu_torch.data import tfrecord
+
+    os.makedirs(raw, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    total = 0
+    for s in range(DATA_SHARDS):
+        records = []
+        for _ in range(DATA_PER_SHARD):
+            feats = {}
+            jpegs = push_frames(rng, STEPS + 1)
+            for i, jpeg in enumerate(jpegs):
+                feats[f"move/{i}/image/encoded"] = [jpeg]
+                for key in ("commanded_pose", "endeffector"):
+                    feats[f"move/{i}/{key}/vec_pitch_yaw"] = [
+                        float(v) for v in rng.uniform(-1, 1, 5)]
+            records.append(tfrecord.encode_example(feats))
+        path = os.path.join(
+            raw, f"push_train.tfrecord-{s:05d}-of-{DATA_SHARDS:05d}")
+        tfrecord.write_records(path, records)
+        total += os.path.getsize(path)
+    return total
+
+
+def run_etl(raw: str, out: str, *extra) -> int:
+    """`python -m pivp_tpu_torch.data.make_dataset_cli` on `raw`; returns
+    the native scanner's calls, which the CLI logs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pivp_tpu_torch.data.make_dataset_cli",
+         "--data_dir", raw, "--out_dir", out, *extra], cwd=root,
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"make_dataset_cli exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    found = [line for line in proc.stderr.splitlines()
+             if "native TFRecord scanner calls:" in line]
+    if not found:
+        fail(f"make_dataset_cli logged no scanner count:\n"
+             f"{proc.stderr[-2000:]}")
+    calls = int(found[-1].rsplit(":", 1)[1].strip(" )"))
+    log(f"make_dataset_cli {' '.join(extra)}: {seconds:.1f} s, native "
+        f"TFRecord scanner calls {calls}")
+    return calls
+
+
+def check_processed(out: str, rows: int) -> None:
+    with open(os.path.join(out, "map.csv")) as f:
+        n = sum(1 for _ in f) - 1
+    shapes = {name: (np.load(os.path.join(out, f"{name}_{rows - 1}.npy"))
+                     .shape) for name in ("image_batch", "action_batch",
+                                          "state_batch", "image_batch_pred")}
+    want = {"image_batch": (STEPS + 1, 64, 64, 3),
+            "action_batch": (STEPS + 1, 1, 5),
+            "state_batch": (STEPS + 1, 1, 5),
+            "image_batch_pred": (STEPS + 1,) + DATA_FRAME + (3,)}
+    log(f"{out}: map.csv rows {n}, npy shapes {shapes}")
+    if n != rows or shapes != want:
+        fail(f"the ETL wrote {n} rows and {shapes}; want {rows} and {want}")
+
+
+def data_cli(args, models: str, data: str, *extra) -> list:
+    return ["--data_dir", data, "--num_iterations", str(DATA_ITERS),
+            "--batch_size", str(BATCH), "--validation_interval", "100",
+            "--save_interval", "100", "--seed", str(args.seed),
+            "--steps_per_call", str(DRIVER_K), "--prefetch", "2",
+            "--run_name", run_name("CDNA"), "--output_dir", models,
+            "--event_log_dir", models, "--device", "cuda", *extra]
+
+
+@contextlib.contextmanager
+def captured_log(name: str):
+    """Yields the list of messages that logger `name` emits."""
+    import logging
+
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = Keep(level=logging.INFO)
+    logger = logging.getLogger(name)
+    logger.addHandler(handler)
+    try:
+        yield messages
+    finally:
+        logger.removeHandler(handler)
+
+
+def data_training(args, tmp: str, data: str) -> None:
+    """Phase 12 (d): train_cli on the converted directory as a world-1
+    NCCL process group, K-step graphed dispatch with prefetch; then the
+    same run without the process group, which must equal it bit for bit
+    under `deterministic`."""
+    from pivp_tpu_torch.data import native
+    from pivp_tpu_torch.training import train_cli
+
+    dist_flags = ("--coordinator_address", f"127.0.0.1:{free_port()}",
+                  "--num_processes", "1", "--process_id", "0")
+    grouped = os.path.join(tmp, "grouped")
+    with deterministic(), captured_log(
+            "pivp_tpu_torch.training.loop") as messages:
+        reset_counters()
+        assembled = native.assemble.calls
+        t0 = time.perf_counter()
+        train_cli.main(data_cli(args, grouped, data, *dist_flags),
+                       standalone_mode=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assembled = native.assemble.calls - assembled
+    groups = [m for m in messages if m.startswith("Data parallel: rank")]
+    log(f"train_cli on the ETL output, {' '.join(dist_flags)}: "
+        f"{seconds:.1f} s; {groups[0] if groups else 'no process group'}; "
+        f"native assembler calls {assembled}")
+    if not groups or "(nccl)" not in groups[0]:
+        fail(f"the run did not train in an NCCL process group: {groups}")
+    if assembled != DATA_ITERS // DRIVER_K:
+        fail(f"the native assembler ran {assembled} times, not "
+             f"{DATA_ITERS // DRIVER_K}")
+    check_counters(f"CDNA train_cli in a world-1 NCCL group ({DATA_ITERS} "
+                   f"steps, 2 warm-up steps)", DATA_ITERS + 2,
+                   DATA_ITERS + 2)
+    alone = os.path.join(tmp, "alone")
+    with deterministic():
+        train_cli.main(data_cli(args, alone, data), standalone_mode=False)
+    differ = same_run_files(os.path.join(grouped, run_name("CDNA")),
+                            os.path.join(alone, run_name("CDNA")))
+    log(f"the same run without the process group: final npz and curves "
+        f"equal bit for bit: {not differ} {differ or ''}")
+    if differ:
+        fail(f"the world-1 NCCL run differs from the run without a "
+             f"group: {differ}")
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def data_batch(seed: int) -> tuple:
+    """Phase 12 (e)'s b32 global batch, time-major, frames as uint8."""
+    return tuple(a[0] for a in driver_batches(seed, BATCH, k=1))
+
+
+def dp_rank_grads(rank: int, port: int, out: str, seed: int) -> None:
+    """Phase 12 (e), one of two gloo ranks on the card: its b16 half of
+    the global batch, one step's all-reduced gradient (saved by rank
+    0)."""
+    import torch.distributed as dist
+
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import multihost
+    from pivp_tpu_torch.parallel import train_step as ts
+    from pivp_tpu_torch.utils import weights
+    from pivp_tpu_torch.utils.device import resolve_device
+
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                         backend="gloo")   # NCCL refuses a shared GPU
+    try:
+        resolve_device("cuda")
+        if dist.get_backend() != "gloo":
+            raise RuntimeError(f"backend {dist.get_backend()}, not gloo")
+        cfg = head_config("CDNA")
+        params = new_train_state(cfg, seed).params
+        local = BATCH // 2
+        batch = tuple(torch.as_tensor(np.ascontiguousarray(
+            a[:, rank * local:(rank + 1) * local]), device="cuda")
+            for a in data_batch(seed + 5))
+        grads, metrics = ts.grads_and_metrics(
+            params, cfg, batch, DRIVER_ITER0,
+            sampling.generator(seed + 1, DRIVER_ITER0),
+            dp=multihost.data_parallel())
+        if rank == 0:
+            keys = list(weights.flatten(params))
+            torch.save({"grads": dict(zip(keys, (g.cpu() for g in grads))),
+                        "loss": float(metrics["loss"])}, out)
+    finally:
+        multihost.shutdown()
+
+
+def data_two_ranks(args, tmp: str) -> None:
+    """Phase 12 (e): two gloo ranks on the one card, b16 each, take one
+    step of the b32 global batch with the same sampling inputs; their
+    all-reduced gradient against the one-rank b32 step's, over the whole
+    gradient, within GRAD_TOL."""
+    import torch.multiprocessing as mp
+
+    from pivp_tpu_torch.ops import sampling
+    from pivp_tpu_torch.parallel import train_step as ts
+    from pivp_tpu_torch.utils import weights
+
+    out = os.path.join(tmp, "dp_grads.pt")
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank_grads, args=(free_port(), out, args.seed),
+                       nprocs=2, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    got = torch.load(out, weights_only=True)
+    cfg = head_config("CDNA")
+    params = new_train_state(cfg, args.seed).params
+    batch = tuple(torch.as_tensor(a, device="cuda")
+                  for a in data_batch(args.seed + 5))
+    grads, metrics = ts.grads_and_metrics(
+        params, cfg, batch, DRIVER_ITER0,
+        sampling.generator(args.seed + 1, DRIVER_ITER0))
+    keys = list(weights.flatten(params))
+    diffs, whole = norms_of_difference(
+        keys, [got["grads"][k] for k in keys], grads)
+    worst = max(diffs, key=diffs.get)
+    log(f"two gloo ranks on the card (b16 each, {seconds:.1f} s with the "
+        f"spawns) vs one rank at b32, iteration {DRIVER_ITER0}: loss "
+        f"{got['loss']:.6f} vs {float(metrics['loss']):.6f}; gradient "
+        f"relative Frobenius {whole:.3e} (tol {GRAD_TOL:g}), worst tensor "
+        f"{worst} {diffs[worst]:.3e}")
+    if not whole <= GRAD_TOL:
+        fail(f"the two ranks' gradient is {whole} from the one-rank step's")
+
+
+def data_flops(args) -> None:
+    """Phase 12 (f): the analytic FLOPs of the CDNA b32 train step
+    (utils/flops) beside rollout_flops's count from the weights' shapes,
+    and the float32 peak share of phase 11's graphed step."""
+    from pivp_tpu_torch.models import predictor
+    from pivp_tpu_torch.utils import flops
+
+    cfg = head_config("CDNA")
+    params = predictor.init_params(torch.Generator().manual_seed(args.seed),
+                                   cfg, device="cpu")
+    step = flops.train_step_flops(cfg, BATCH)
+    forward = rollout_flops(params, cfg, BATCH)
+    log(f"CDNA b{BATCH} train step FLOPs: utils/flops {step} (3x a forward "
+        f"of {step // 3}); rollout_flops from the weights' shapes {forward}"
+        f" a forward ({forward / (step // 3):.4f}x), {3 * forward} x3")
+    # Where the two forward counts differ, layer by layer.
+    ours = {k: v * BATCH * (cfg.sequence_length - 1)
+            for k, v in flops.forward_step_terms(cfg).items()}
+    theirs = rollout_layer_flops(params, cfg, BATCH)
+    gap = step // 3 - forward
+    for layer in sorted(set(ours) | set(theirs)):
+        a, b = ours.get(layer, 0), theirs.get(layer, 0)
+        if a != b:
+            log(f"  {layer}: utils/flops {a}, weights' shapes {b}, "
+                f"{a - b:+d} ({100 * (a - b) / gap:.2f}% of the gap)")
+    ms = MEASURED.get("graphed_ms/CDNA")
+    if ms is None:
+        log("share of the float32 peak: not measured (phase 11 did not "
+            "run)")
+        return
+    for name, count in (("utils/flops", step),
+                        ("the weights' shapes (3x rollout_flops)",
+                         3 * forward)):
+        tflops = count / (ms / 1e3) / 1e12
+        log(f"phase 11's graphed CDNA step, {ms:.3f} ms: {tflops:.2f} "
+            f"TFLOP/s by {name}, {100 * flops.mfu(tflops):.1f}% of the "
+            f"H100's {flops.H100_F32_PEAK_TFLOPS:g} TFLOP/s float32 peak")
+
+
+def data_phase(args) -> None:
+    """Phase 12: the data path (see the docstring)."""
+    from pivp_tpu_torch.data import build_features
+
+    os.makedirs(args.out, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=args.out, prefix="data-")
+    try:
+        raw = os.path.join(tmp, "raw")
+        t0 = time.perf_counter()
+        nbytes = write_raw_shards(raw, args.seed)
+        log(f"wrote {DATA_SHARDS} raw shards of {DATA_PER_SHARD} records "
+            f"({STEPS + 1} JPEG frames of {DATA_FRAME[1]}x{DATA_FRAME[0]} "
+            f"each), {nbytes / 2**20:.1f} MiB, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        data = os.path.join(tmp, "processed")
+        calls = run_etl(raw, data, "--sequences_per_file", "0")
+        if calls != DATA_SHARDS:
+            fail(f"the native scanner ran {calls} times for "
+                 f"{DATA_SHARDS} shards")
+        check_processed(data, DATA_SHARDS * DATA_PER_SHARD)
+        four = os.path.join(tmp, "raw4")
+        os.makedirs(four)
+        for name in sorted(os.listdir(raw))[:4]:
+            os.symlink(os.path.join(raw, name), os.path.join(four, name))
+        run_etl(four, os.path.join(tmp, "processed4"))
+        check_processed(os.path.join(tmp, "processed4"), 4)
+        build_features.main(["--data_dir", data], standalone_mode=False)
+        with open(os.path.join(data, "features.json")) as f:
+            feats = json.load(f)
+        log(f"build_features: features.json num_sequences "
+            f"{feats['num_sequences']}, image_shape {feats['image_shape']}, "
+            f"mean interframe motion {feats['mean_interframe_motion']:.5f}")
+        if feats["num_sequences"] != DATA_SHARDS * DATA_PER_SHARD:
+            fail(f"features.json counts {feats['num_sequences']} sequences")
+        data_training(args, tmp, data)
+        data_two_ranks(args, tmp)
+        data_flops(args)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1900,6 +2398,9 @@ def main() -> None:
                     help="stop after phase 3 (no JSON lines are printed)")
     ap.add_argument("--driver_only", action="store_true",
                     help="run phases 1, 2 and 11 only (no JSON lines are "
+                    "printed)")
+    ap.add_argument("--data_only", action="store_true",
+                    help="run phases 1, 2 and 12 only (no JSON lines are "
                     "printed)")
     ap.add_argument("--bwd_x_rows", default="",
                     help="comma-separated tile heights: after phase 3, "
@@ -1941,6 +2442,11 @@ def main() -> None:
     if args.driver_only:
         driver_phase(args)
         phase_done("11 driver")
+        log(card)
+        return
+    if args.data_only:
+        data_phase(args)
+        phase_done("12 data")
         log(card)
         return
 
@@ -1995,9 +2501,14 @@ def main() -> None:
     driver_phase(args)
     phase_done("11 driver")
 
+    # 12. the data path: raw shards -> the ETL -> map.csv -> training in
+    # a process group, and two ranks' all-reduced gradient
+    data_phase(args)
+    phase_done("12 data")
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")
+             "bound_by", "library_ms", "library_cold_ms")
     print(json.dumps({"kernels": [{k: d[k] for k in order}
                                   for d in kernels]}))
     print(card)

@@ -147,10 +147,10 @@ class ModelConfig:
 class TrainConfig:
     """Training-loop configuration: the reference CLI's 19 flags (field
     meanings as in the JAX package's TrainConfig) and the JAX package's
-    extras. Left out are the TPU lowering, mesh and multi-host fields
-    (`num_devices`, `spatial_parallel`, `pad_gate_convs`, `scan_unroll`,
-    `use_pallas`): one GPU runs the whole batch, and `use_kernel` /
-    `use_kernel_gates` take `use_pallas`'s place."""
+    extras. Left out are the TPU lowering fields (`pad_gate_convs`,
+    `scan_unroll`, `use_pallas`): `use_kernel` / `use_kernel_gates` take
+    `use_pallas`'s place. `num_devices` and `spatial_parallel` map onto
+    a torch.distributed process group (parallel/mesh.py)."""
 
     data_dir: str = "data/processed/brain-robotics-data/push/push_train"
     output_dir: str = "models"
@@ -211,6 +211,11 @@ class TrainConfig:
     checkpointer: str = "npz"
     # SIGTERM/SIGINT checkpoint at the next dispatch boundary and return.
     graceful_preemption: bool = True
+    # Data-parallel ranks: 0 = every rank of the process group (one
+    # process per GPU); N > 0 must be the world size.
+    num_devices: int = 0
+    # Spatial (image-height) parallel ways: only 1, not ported yet.
+    spatial_parallel: int = 1
 
     def __post_init__(self):
         if self.checkpointer not in ("npz", "torch"):

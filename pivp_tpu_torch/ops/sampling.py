@@ -38,10 +38,14 @@ def scheduled_sample(uniforms: torch.Tensor, ground_truth: torch.Tensor,
     is an int, or a 0-d tensor on the uniforms' device (what a captured
     train step reads).
 
-    uniforms: (B,); ground_truth / generated: (B, ...).
+    uniforms: (B,), or (B_global,) for a data-parallel rank's share of
+    a global batch: the ranking then runs over the whole global batch,
+    whose uniforms come rotated so that this rank's B rows lead, and
+    the first B decisions are this batch's (parallel/train_step.
+    step_sampling); ground_truth / generated: (B, ...).
     `detach_sampled=True` blocks gradients through the mixed result (the
     reference's CPU round-trip side effect)."""
-    rank = torch.argsort(torch.argsort(uniforms))
+    rank = torch.argsort(torch.argsort(uniforms))[:ground_truth.shape[0]]
     is_gt = (rank < n_ground_truth).to(ground_truth.device)
     shape = (ground_truth.shape[0],) + (1,) * (ground_truth.ndim - 1)
     mixed = torch.where(is_gt.reshape(shape), ground_truth, generated)

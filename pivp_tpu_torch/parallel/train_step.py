@@ -12,6 +12,15 @@ drawn on the host) are staged in one byte buffer, which reaches the GPU
 in one host-to-device copy. On the GPU one train step is captured once
 as a CUDA graph and replayed for each step; on the CPU the same staged
 steps run eagerly.
+
+Data parallelism (`dp`, a multihost.DataParallel): each rank runs the
+step on its own columns of the global batch, then all-reduces the
+gradients (one flat buffer, summed, divided by the world size) before
+Adam, and the step metrics with them, so every rank applies the same
+update, as JAX's one program over the global batch does. Scheduled
+sampling stays global: every rank draws the global batch's uniforms and
+ground-truth count, ranks all of them, and keeps its own columns
+(step_sampling).
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ import torch
 
 from pivp_tpu_torch.config import ModelConfig
 from pivp_tpu_torch.models import predictor
+from pivp_tpu_torch.ops import metrics as metrics_lib
 from pivp_tpu_torch.ops import sampling
 from pivp_tpu_torch.ops.kernels import local_apply, lstm_gates
+from pivp_tpu_torch.parallel.multihost import DataParallel
 from pivp_tpu_torch.utils import weights
 from pivp_tpu_torch.utils.device import to_device
 
@@ -184,22 +195,45 @@ def load_opt_state_tree(state: TrainState, tree: Dict) -> None:
             st["nu"].copy_(nu[key])
 
 
+def _check_dp(dp: Optional[DataParallel], grad_accum: int) -> None:
+    if dp is not None and dp.world > 1 and grad_accum > 1:
+        raise NotImplementedError(
+            "--grad_accum > 1 with several data-parallel ranks is not "
+            "supported: JAX's microbatches are slices of the global batch "
+            "that straddle the ranks' columns, each with its own sampling "
+            "inputs (ROADMAP.md, 'Modules to port')")
+
+
 def step_sampling(cfg: ModelConfig, t_total: int, batch: int,
                   iter_num: int, generator: Optional[torch.Generator],
-                  grad_accum: int = 1
+                  grad_accum: int = 1, dp: Optional[DataParallel] = None
                   ) -> Tuple[Optional[torch.Tensor], int]:
     """One train step's scheduled-sampling inputs, drawn on the host:
     the uniforms (T-1, B) float32 on the CPU and the ground-truth count
     of a (micro)batch, or (None, 0) when sampling is off. Microbatch g
     of `grad_accum` draws its columns from a generator folded from the
-    step's seed and g, as the JAX package folds its key."""
+    step's seed and g, as the JAX package folds its key.
+
+    With `dp`, `batch` is the rank's share: the uniforms are the global
+    batch's (T-1, B * world) and the count is the global batch's, as
+    JAX draws them for its one program. They come rotated so that this
+    rank's columns lead (`sampling.scheduled_sample` ranks all of them
+    and keeps the leading ones), so every rank mixes exactly the rows
+    that the one-process step over the global batch mixes."""
     if batch % grad_accum:
         raise ValueError(f"batch {batch} not divisible by grad_accum "
                          f"{grad_accum}")
+    _check_dp(dp, grad_accum)
     if cfg.scheduled_sampling_k == -1:
         return None, 0
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if dp is not None and dp.world > 1:
+        total = batch * dp.world
+        n_gt = sampling.num_ground_truth(total, cfg.scheduled_sampling_k,
+                                         iter_num)
+        uniforms = torch.rand((t_total - 1, total), generator=generator)
+        return torch.roll(uniforms, -dp.rank * batch, dims=1), n_gt
     mb = batch // grad_accum
     n_gt = sampling.num_ground_truth(mb, cfg.scheduled_sampling_k,
                                      iter_num)
@@ -209,6 +243,35 @@ def step_sampling(cfg: ModelConfig, t_total: int, batch: int,
     return torch.cat([
         torch.rand((t_total - 1, mb), generator=sampling.generator(seed, g))
         for g in range(grad_accum)], dim=1), n_gt
+
+
+def _all_reduce_mean(tensors: List[torch.Tensor],
+                     dp: DataParallel) -> List[torch.Tensor]:
+    """The ranks' mean of each tensor: one flat buffer, all-reduced
+    (sum) over the group and divided by the world size."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=dp.group)
+    flat = flat / dp.world
+    return [part.view_as(t) for part, t in zip(
+        torch.split(flat, [t.numel() for t in tensors]), tensors)]
+
+
+def _reduce_metrics(metrics: Dict, dp: DataParallel) -> Dict:
+    """Global-batch metrics from the ranks': the loss and the per-frame
+    costs are batch means, so their means over equal shares are the
+    global ones; PSNR, a function of the batch MSE, is recomputed from
+    the reduced recon costs."""
+    linear = [k for k in ("loss", "recon_costs", "state_costs")
+              if k in metrics]
+    out = dict(metrics)
+    out.update(zip(linear, _all_reduce_mean([metrics[k] for k in linear],
+                                            dp)))
+    if "recon_costs" in out:
+        out["psnrs"] = metrics_lib._psnr(out["recon_costs"])
+        out["psnr_all"] = out["psnrs"].sum()
+    return out
 
 
 def _loss_fn(params, cfg: ModelConfig, batch: Batch, uniforms, n_gt,
@@ -222,10 +285,24 @@ def _loss_fn(params, cfg: ModelConfig, batch: Batch, uniforms, n_gt,
 
 
 def _grads(params, cfg: ModelConfig, batch: Batch, uniforms, n_gt,
-           remat: bool, grad_accum: int
+           remat: bool, grad_accum: int, dp: Optional[DataParallel] = None
            ) -> Tuple[List[torch.Tensor], Dict]:
     """Gradients and detached metrics of one step whose sampling inputs
-    are given (device tensors, or None and 0 without sampling)."""
+    are given (device tensors, or None and 0 without sampling); with
+    `dp`, the ranks' means (a world of one leaves the metrics as they
+    are: it has nothing to average)."""
+    grads, metrics = _local_grads(params, cfg, batch, uniforms, n_gt,
+                                  remat, grad_accum)
+    if dp is not None:
+        grads = _all_reduce_mean(grads, dp)
+        if dp.world > 1:
+            metrics = _reduce_metrics(metrics, dp)
+    return grads, metrics
+
+
+def _local_grads(params, cfg: ModelConfig, batch: Batch, uniforms, n_gt,
+                 remat: bool, grad_accum: int
+                 ) -> Tuple[List[torch.Tensor], Dict]:
     leaves = list(weights.flatten(params).values())
     if grad_accum <= 1:
         loss, out = _loss_fn(params, cfg, batch, uniforms, n_gt, remat)
@@ -253,20 +330,22 @@ def _grads(params, cfg: ModelConfig, batch: Batch, uniforms, n_gt,
 
 def grads_and_metrics(params, cfg: ModelConfig, batch: Batch,
                       iter_num: int, generator: torch.Generator,
-                      remat: bool = False, grad_accum: int = 1
+                      remat: bool = False, grad_accum: int = 1,
+                      dp: Optional[DataParallel] = None
                       ) -> Tuple[List[torch.Tensor], Dict]:
     """Gradients (in `weights.flatten(params)` order) and detached
     metrics, optionally over `grad_accum` contiguous microbatches. The
     loss is a batch mean, so the mean of the microbatch gradients is
     exact; metrics become means of the per-microbatch values. The
     scheduled-sampling uniforms come from `generator` (see
-    step_sampling)."""
+    step_sampling). With `dp` the batch is the rank's share of the
+    global batch, and the gradients and metrics are the global ones."""
     uniforms, n_gt = step_sampling(cfg, batch[0].shape[0],
                                    batch[0].shape[1], iter_num, generator,
-                                   grad_accum)
+                                   grad_accum, dp)
     if uniforms is not None:
         uniforms = to_device(uniforms, batch[0].device)
-    return _grads(params, cfg, batch, uniforms, n_gt, remat, grad_accum)
+    return _grads(params, cfg, batch, uniforms, n_gt, remat, grad_accum, dp)
 
 
 def _apply(state: TrainState, grads: List[torch.Tensor]) -> None:
@@ -277,18 +356,20 @@ def _apply(state: TrainState, grads: List[torch.Tensor]) -> None:
 
 
 def make_train_step(cfg: ModelConfig, remat: bool = False,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, dp: Optional[DataParallel] = None):
     """Build step(state, (images, actions, states), iter_num, generator)
     -> (state, metrics). Batches are time-major (T, B, ...) on the
     parameters' device; the update is in place and `state.step` counts
     it. `generator` (a CPU torch.Generator) draws the scheduled-sampling
-    uniforms."""
+    uniforms. With `dp` each rank passes its share of the global batch
+    and takes the global step (see the module docstring)."""
+    _check_dp(dp, grad_accum)
 
     def train_step(state: TrainState, batch: Batch, iter_num: int,
                    generator: torch.Generator):
         grads, metrics = grads_and_metrics(
             state.params, cfg, batch, iter_num, generator, remat,
-            grad_accum)
+            grad_accum, dp)
         _apply(state, grads)
         state.step += 1
         return state, metrics
@@ -334,20 +415,22 @@ def _as_tensor(a) -> torch.Tensor:
 
 
 def stage_call(cfg: ModelConfig, batches, iter0: int, seed: int,
-               grad_accum: int = 1, pin: bool = False) -> StagedCall:
+               grad_accum: int = 1, pin: bool = False,
+               dp: Optional[DataParallel] = None) -> StagedCall:
     """Stage K steps' inputs for make_train_multi: the batches
     (images, actions, states), each (K, T, B, ...), and, with scheduled
     sampling, step k's uniforms and ground-truth count drawn from
     `sampling.generator(seed, iter0 + k)` exactly as the one-step path
-    draws them. `pin` puts the buffer in page-locked memory, from which
-    the copy to a GPU does not wait for the host."""
+    draws them (with `dp`, the global batch's, rotated to this rank: see
+    step_sampling). `pin` puts the buffer in page-locked memory, from
+    which the copy to a GPU does not wait for the host."""
     images, actions, states = (_as_tensor(a) for a in batches)
     k, t_total, batch = images.shape[:3]
     fields = [("images", images), ("actions", actions), ("states", states)]
     if cfg.scheduled_sampling_k != -1:
         draws = [step_sampling(cfg, t_total, batch, iter0 + i,
                                sampling.generator(seed, iter0 + i),
-                               grad_accum) for i in range(k)]
+                               grad_accum, dp) for i in range(k)]
         fields += [("uniforms", torch.stack([u for u, _ in draws])),
                    ("n_gt", torch.tensor([n for _, n in draws],
                                          dtype=torch.int64))]
@@ -460,7 +543,7 @@ class CapturedStep:
 
 
 def make_train_multi(cfg: ModelConfig, remat: bool = False,
-                     grad_accum: int = 1):
+                     grad_accum: int = 1, dp: Optional[DataParallel] = None):
     """K optimizer steps per dispatch.
 
     Signature: multi(state, batches, iter0, seed, k_real=None)
@@ -479,13 +562,20 @@ def make_train_multi(cfg: ModelConfig, remat: bool = False,
     captured once as a CUDA graph (CapturedStep, on `multi.captured`
     after the first call), is replayed for each step: no host sync
     inside the dispatch. A capture or replay that fails raises. On the
-    CPU the same staged steps run eagerly."""
+    CPU the same staged steps run eagerly.
+
+    With `dp` (see make_train_step) the graph captures the gradient
+    all-reduce too, which NCCL allows once its communicator is warm (the
+    eager warm-up steps all-reduce first). gloo's collectives cannot be
+    captured, so on a GPU a gloo group raises."""
+    _check_dp(dp, grad_accum)
 
     def body(state, inputs):
         batch = (inputs["images"], inputs["actions"], inputs["states"])
         grads, metrics = _grads(state.params, cfg, batch,
                                 inputs.get("uniforms"),
-                                inputs.get("n_gt", 0), remat, grad_accum)
+                                inputs.get("n_gt", 0), remat, grad_accum,
+                                dp)
         _apply(state, grads)
         return torch.stack([metrics["loss"], metrics["psnr_all"]])
 
@@ -509,7 +599,7 @@ def make_train_multi(cfg: ModelConfig, remat: bool = False,
         staged = batches
         if not isinstance(staged, StagedCall):
             staged = stage_call(cfg, batches, iter0, seed, grad_accum,
-                                pin=device.type == "cuda")
+                                pin=device.type == "cuda", dp=dp)
         if (staged.iter0, staged.seed) != (iter0, seed):
             raise ValueError(
                 f"the call was staged for iteration {staged.iter0}, seed "
@@ -518,6 +608,11 @@ def make_train_multi(cfg: ModelConfig, remat: bool = False,
         if not 1 <= k_real <= staged.k:
             raise ValueError(f"k_real {k_real} outside 1..{staged.k}")
         if device.type == "cuda":
+            if dp is not None and dp.backend != "nccl":
+                raise RuntimeError(
+                    f"a CUDA graph of the train step cannot capture "
+                    f"{dp.backend}'s all-reduce: use NCCL (a GPU per "
+                    f"rank) or --steps_per_call 1")
             host = staged.buffer
             if not host.is_pinned():
                 host = host.pin_memory()

@@ -1,7 +1,7 @@
-"""The training loop on one device.
+"""The training loop, on one GPU or data-parallel over a process group.
 
-Counterpart of `pivp_tpu/training/loop.py` without its mesh and
-multi-host branches. It keeps the reference training loop's contract:
+Counterpart of `pivp_tpu/training/loop.py` without spatial parallelism.
+It keeps the reference training loop's contract:
   * map.csv dataset (in RAM, or read per batch with `lazy_load`),
     leading-fraction train/val split and a seeded shuffled epoch stream;
   * Adam (Chainer's rule), warm start from `pretrained_model` (weights)
@@ -24,7 +24,20 @@ Beyond the reference, as the JAX package does:
     it and draws exactly the batches and sampling inputs the
     uninterrupted run would have;
   * graceful preemption: SIGTERM/SIGINT checkpoint at the next dispatch
-    boundary and return.
+    boundary and return;
+  * data parallelism over a torch.distributed process group (train_cli
+    --coordinator_address/--num_processes/--process_id, parallel/
+    multihost.py): each rank trains on its own row shard
+    (HostShardedBatcher, equal shards, the train rows trimmed to a
+    multiple of the world size) and the train step all-reduces; the
+    ranks agree on the run name and, at each dispatch boundary, on a
+    preemption; validation is a global mean; only rank 0 writes npz
+    files, curves, `full-state.pt` and events, and every rank resumes
+    from them.
+
+Batches are gathered from the batcher's indices by the native
+assembler (data/assembler.py): one pass for the gather, the time-major
+transpose and the u8 quantization.
 
 Scheduled sampling draws each step's uniforms from a generator seeded
 from (seed + 1, absolute iteration), so the sampling stream does not
@@ -48,9 +61,12 @@ import numpy as np
 import torch
 
 from pivp_tpu_torch.config import TrainConfig
+from pivp_tpu_torch.data import assembler
 from pivp_tpu_torch.data import dataset as dataset_lib
 from pivp_tpu_torch.models import predictor
 from pivp_tpu_torch.ops import sampling
+from pivp_tpu_torch.parallel import mesh as mesh_lib
+from pivp_tpu_torch.parallel import multihost
 from pivp_tpu_torch.parallel import train_step as ts_lib
 from pivp_tpu_torch.training import preemption
 from pivp_tpu_torch.utils import checkpoint as ckpt_lib
@@ -68,9 +84,16 @@ def run_training(cfg: TrainConfig,
     the epoch curves.
 
     `arrays` overrides on-disk data with in-memory (images, actions,
-    states) of shape (N, T, ...)."""
+    states) of shape (N, T, ...). When a process group is initialized
+    (parallel/multihost.initialize), every rank runs this same driver
+    on the rank's device and the run is data-parallel over the group."""
     mcfg = cfg.model_config()
-    device = resolve_device(cfg.device)
+    mesh_lib.check_spatial_parallel(cfg.spatial_parallel)
+    rank, world = multihost.process_info()
+    dp = multihost.data_parallel()
+    is_primary = rank == 0
+    mesh_lib.data_parallel_size(cfg.batch_size, cfg.num_devices, world)
+    device = resolve_device(multihost.rank_device(cfg.device, rank))
 
     if arrays is None:
         arrays = (dataset_lib.lazy_sequences(cfg.data_dir)
@@ -82,6 +105,22 @@ def run_training(cfg: TrainConfig,
     logger.info(
         "Data set contains %d sequences: %d train / %d validation",
         n_total, train_arrays[0].shape[0], val_arrays[0].shape[0])
+    if world > 1:
+        # Equal row shards keep every rank's epoch schedule, and so the
+        # collective validation sweeps, in lockstep.
+        n_tr = train_arrays[0].shape[0]
+        usable = n_tr - n_tr % world
+        if usable == 0:
+            raise ValueError(f"{n_tr} train sequences cannot cover "
+                             f"{world} ranks")
+        if usable != n_tr:
+            train_arrays = tuple(a[:usable] for a in train_arrays)
+            logger.info("Data parallel: trimmed %d train rows for equal "
+                        "rank shards", n_tr - usable)
+    if dp is not None:
+        logger.info("Data parallel: rank %d of %d (%s), batch %d of the "
+                    "global %d on %s", rank, world, dp.backend,
+                    cfg.batch_size // world, cfg.batch_size, device)
 
     params = predictor.init_params(torch.Generator().manual_seed(cfg.seed),
                                    mcfg, device=device)
@@ -105,21 +144,34 @@ def run_training(cfg: TrainConfig,
                 " (auto)" if cfg.steps_per_call == 0 else "")
     if steps_per_call > 1:
         train_multi = ts_lib.make_train_multi(mcfg, remat=cfg.remat,
-                                              grad_accum=cfg.grad_accum)
+                                              grad_accum=cfg.grad_accum,
+                                              dp=dp)
     else:
         train_step = ts_lib.make_train_step(mcfg, remat=cfg.remat,
-                                            grad_accum=cfg.grad_accum)
+                                            grad_accum=cfg.grad_accum,
+                                            dp=dp)
     eval_step = ts_lib.make_eval_step(mcfg)
 
     if run_name is None:
         run_name = "{0}-{1}-{2}".format(
             time.strftime("%Y%m%d-%H%M%S"), cfg.model_type, cfg.batch_size)
+    if world > 1:
+        # Ranks can cross a second boundary during startup; all of them
+        # must address one run directory.
+        run_name = multihost.agree_string(run_name)
+
+    def run_dir() -> str:
+        """The run directory, which rank 0 alone creates and writes."""
+        if is_primary:
+            return ckpt_lib.prepare_run_dir(cfg.output_dir, run_name)
+        return os.path.join(cfg.output_dir, run_name)
+
     save_dir = None
     curves: Tuple[List[List[float]], ...] = ([], [], [], [])
     itr = 0
     resumed = None
     if cfg.checkpointer == "torch":
-        save_dir = ckpt_lib.prepare_run_dir(cfg.output_dir, run_name)
+        save_dir = run_dir()
         resumed = load_full_state(save_dir, state)
         if resumed is not None:
             itr = resumed["itr"]
@@ -130,8 +182,15 @@ def run_training(cfg: TrainConfig,
     (global_losses, global_psnr_all, global_losses_valid,
      global_psnr_all_valid) = curves
 
-    batcher = dataset_lib.EpochBatcher(train_arrays, cfg.batch_size,
-                                       seed=cfg.seed)
+    if world > 1:
+        # Each rank draws its own row shard; the global batch is the
+        # ranks' batches in rank order.
+        batcher = multihost.HostShardedBatcher(
+            train_arrays, cfg.batch_size, seed=cfg.seed,
+            process_index=rank, process_count=world)
+    else:
+        batcher = dataset_lib.EpochBatcher(train_arrays, cfg.batch_size,
+                                           seed=cfg.seed)
     if itr:
         # Replay the shuffle to the checkpointed step, so the run draws
         # exactly the batches the uninterrupted run would have.
@@ -150,8 +209,11 @@ def run_training(cfg: TrainConfig,
         checkpoint."""
         nonlocal save_dir
         if cfg.nan_guard and not np.isfinite(losses_np).all():
-            save_dir = ckpt_lib.prepare_run_dir(cfg.output_dir, run_name)
-            _save_checkpoint(save_dir, f"nan-epoch{epoch}", state, *curves)
+            # The losses are global, so every rank stops here.
+            save_dir = run_dir()
+            if is_primary:
+                _save_checkpoint(save_dir, f"nan-epoch{epoch}", state,
+                                 *curves)
             raise FloatingPointError(
                 f"non-finite training loss at epoch {epoch}; emergency "
                 f"checkpoint saved to {save_dir}")
@@ -167,7 +229,7 @@ def run_training(cfg: TrainConfig,
         summaries = (logging_utils.frame_summaries(
             "train", {k: v.cpu().numpy() for k, v in last_metrics.items()})
             if "recon_costs" in last_metrics else [])
-        _write_event(cfg.event_log_dir, run_name, {
+        _write_event(cfg.event_log_dir if is_primary else "", run_name, {
             "epoch": epoch, "iteration": itr,
             "train_loss": logging_utils.epoch_stats(list(losses_np)),
             "train_psnr": logging_utils.epoch_stats(list(psnr_np)),
@@ -179,7 +241,8 @@ def run_training(cfg: TrainConfig,
                 and val_arrays[0].shape[0] > 0):
             v = run_validation(eval_step, state.params, val_arrays,
                                cfg.batch_size, mcfg.state_cost_weight,
-                               u8_transfer=cfg.u8_transfer, device=device)
+                               u8_transfer=cfg.u8_transfer, device=device,
+                               distributed=world > 1)
             global_losses_valid.append(
                 logging_utils.epoch_stats([v["loss"]]))
             global_psnr_all_valid.append(
@@ -189,7 +252,8 @@ def run_training(cfg: TrainConfig,
                 "per-image-psnr: %.3f dB  ssim: %.4f  (n=%d)",
                 epoch, v["loss"], v["psnr_all"], v["psnr_per_image"],
                 v["ssim"], v["n_sequences"])
-            _write_event(cfg.event_log_dir, run_name, {
+            _write_event(cfg.event_log_dir if is_primary else "",
+                         run_name, {
                 "epoch": epoch, "iteration": itr, "split": "validation",
                 "loss": logging_utils.epoch_stats([v["loss"]]),
                 "psnr_all": logging_utils.epoch_stats([v["psnr_all"]]),
@@ -199,13 +263,14 @@ def run_training(cfg: TrainConfig,
             })
 
         if epoch % cfg.save_interval == 0:
-            save_dir = ckpt_lib.prepare_run_dir(cfg.output_dir, run_name)
-            _save_checkpoint(save_dir, epoch, state, *curves)
+            save_dir = run_dir()
+            if is_primary:
+                _save_checkpoint(save_dir, epoch, state, *curves)
             return True
         return False
 
     calls = _produce_calls(batcher, cfg, itr, steps_per_call, seed, mcfg,
-                           device)
+                           device, dp)
     if cfg.prefetch > 0:
         calls = _Prefetcher(calls, cfg.prefetch)
 
@@ -258,10 +323,15 @@ def run_training(cfg: TrainConfig,
                 tail = (losses_np[prev:], psnr_np[prev:])
                 stream = ([tail + (len(tail[0]),)] if len(tail[0]) else [])
                 epoch_start = time.time()
-                if saved and cfg.checkpointer == "torch":
+                if saved and cfg.checkpointer == "torch" and is_primary:
                     save_full_state(save_dir, state, itr, curves, stream)
 
-            if preemption.requested():
+            stop = preemption.requested()
+            if world > 1:
+                # A SIGTERM that reached only some ranks stops every
+                # rank at this step.
+                stop = multihost.agree_flag(stop)
+            if stop:
                 # Checkpoint now: the relaunch resumes at this exact
                 # step, with the partial epoch's metrics.
                 preempted = True
@@ -272,12 +342,13 @@ def run_training(cfg: TrainConfig,
         # The final checkpoint is written while the set-a-flag handlers
         # are still installed: a second SIGTERM during the save must not
         # end the process mid-write.
-        save_dir = ckpt_lib.prepare_run_dir(cfg.output_dir, run_name)
-        _save_checkpoint(save_dir,
-                         f"preempt-itr{itr}" if preempted else "final",
-                         state, *curves)
-        if cfg.checkpointer == "torch":
-            save_full_state(save_dir, state, itr, curves, stream)
+        save_dir = run_dir()
+        if is_primary:
+            _save_checkpoint(save_dir,
+                             f"preempt-itr{itr}" if preempted else "final",
+                             state, *curves)
+            if cfg.checkpointer == "torch":
+                save_full_state(save_dir, state, itr, curves, stream)
     finally:
         restore_signals()
         if isinstance(calls, _Prefetcher):
@@ -305,22 +376,33 @@ def _copy_params(state: ts_lib.TrainState, params: Dict) -> None:
 
 def run_validation(eval_step, params, val_arrays, batch_size: int,
                    state_cost_weight: float, u8_transfer: bool = False,
-                   device="cuda") -> Dict[str, float]:
+                   device="cuda", distributed: bool = False
+                   ) -> Dict[str, float]:
     """One exact validation sweep, on `device` (the GPU unless the caller
     asks for the CPU; raises on a host without one).
 
     Aggregates the per-(frame, sequence) metric matrices of the eval
     step, masking the padded duplicate rows of the final partial batch,
-    so every metric is independent of batch_size."""
+    so every metric is independent of batch_size. With `distributed`,
+    a collective over the process group: every rank sees the whole
+    validation set, evaluates its own columns of each (global) eval
+    batch, and the ranks gather the matrices in rank order, so every
+    rank returns the global means of the one-process sweep."""
     device = resolve_device(device)
     recon_cols, state_cols, ssim_cols = [], [], []
     for vbatch, n_valid in dataset_lib.eval_batches(val_arrays,
                                                     batch_size):
         if u8_transfer:
-            vbatch = (_quantize_images(vbatch[0]), vbatch[1], vbatch[2])
-        vbatch = tuple(to_device(torch.from_numpy(a), device)
-                       for a in vbatch)
+            vbatch = (assembler.quantize_images(vbatch[0]), vbatch[1],
+                      vbatch[2])
+        if distributed:
+            vbatch = multihost.local_columns(vbatch, batch_size)
+        vbatch = tuple(to_device(torch.from_numpy(
+            np.ascontiguousarray(a)), device) for a in vbatch)
         out = eval_step(params, vbatch)
+        if distributed:
+            out = {k: multihost.gather_columns(out[k])
+                   for k in ("recon_mse_tb", "state_mse_tb", "ssim_tb")}
         recon_cols.append(out["recon_mse_tb"].cpu().numpy()[:, :n_valid])
         state_cols.append(out["state_mse_tb"].cpu().numpy()[:, :n_valid])
         ssim_cols.append(out["ssim_tb"].cpu().numpy()[:, :n_valid])
@@ -342,13 +424,6 @@ def run_validation(eval_step, params, val_arrays, batch_size: int,
     }
 
 
-def _quantize_images(images: np.ndarray) -> np.ndarray:
-    """[0,1] float frames -> uint8 for the host->device transfer
-    (dequantized on the device in the rollout); the rounding and
-    clipping of ops/transforms.quantize_frames_u8."""
-    return np.clip(images * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
-
-
 def _staging_budget_bytes() -> int:
     """Page-locked host memory for the producer's staged payloads (all
     queued calls together): with prefetch, up to (prefetch + 1) payloads
@@ -362,32 +437,34 @@ def _producer_staging_ok(payload_bytes: int, prefetch: int) -> bool:
 
 
 def _produce_calls(batcher, cfg: TrainConfig, start_itr: int,
-                   steps_per_call: int, seed: int, mcfg, device):
+                   steps_per_call: int, seed: int, mcfg, device, dp=None):
     """Yield (payload, k_real, marks) for each dispatch.
 
-    With steps_per_call == 1 the payload is one batch of host tensors
-    (images uint8 when `u8_transfer` is on), copied to the device at
-    dispatch; with K > 1 it is a StagedCall of the next k_real <= K batches and
-    their sampling inputs (the last dispatch of a run is short). `marks`
-    lists (step within the dispatch, epoch) for every step that closed
-    an epoch. On a GPU the payloads are pinned here while they fit the
+    The next k_real <= K batches are gathered from the batcher's indices
+    in one pass by the native assembler (data/assembler.py: time-major,
+    images uint8 when `u8_transfer` is on). With steps_per_call == 1 the
+    payload is that batch as host tensors, copied to the device at
+    dispatch; with K > 1 it is a StagedCall of the batches and their
+    sampling inputs (the last dispatch of a run is short). `marks` lists
+    (step within the dispatch, epoch) for every step that closed an
+    epoch. On a GPU the payloads are pinned here while they fit the
     staging budget. Runs on the prefetch thread when `cfg.prefetch` >
     0, so the gather, the quantization and the pinning overlap the
-    device's work."""
+    device's work. Under data parallelism (`dp`) the batches are the
+    rank's shares and the sampling inputs the global batch's."""
     itr = start_itr
     cuda = torch.device(device).type == "cuda"
     warned = False
     while itr < cfg.num_iterations:
         k = min(steps_per_call, cfg.num_iterations - itr)
-        batches, marks = [], []
+        rows, marks = [], []
         for i in range(k):
-            batch = batcher.next()
+            rows.append(batcher.next_indices())
             if batcher.is_new_epoch:
                 marks.append((i, batcher.epoch))
-            if cfg.u8_transfer:
-                batch = (_quantize_images(batch[0]),) + batch[1:]
-            batches.append(batch)
-        payload_bytes = sum(a.nbytes for b in batches for a in b)
+        stacked = assembler.assemble_calls(batcher.arrays, np.stack(rows),
+                                           cfg.u8_transfer)
+        payload_bytes = sum(a.nbytes for a in stacked)
         stage = cuda and _producer_staging_ok(payload_bytes, cfg.prefetch)
         if cuda and not stage and not warned:
             warned = True
@@ -397,11 +474,10 @@ def _produce_calls(batcher, cfg: TrainConfig, start_itr: int,
                         cfg.prefetch + 1, payload_bytes / 2**20,
                         _staging_budget_bytes() >> 20)
         if steps_per_call > 1:
-            stacked = tuple(np.stack(col) for col in zip(*batches))
             payload = ts_lib.stage_call(mcfg, stacked, itr, seed,
-                                        cfg.grad_accum, pin=stage)
+                                        cfg.grad_accum, pin=stage, dp=dp)
         else:
-            payload = tuple(torch.from_numpy(a) for a in batches[0])
+            payload = tuple(torch.from_numpy(a[0]) for a in stacked)
             if stage:
                 payload = tuple(t.pin_memory() for t in payload)
         yield payload, k, marks

@@ -6,10 +6,21 @@ CLI's extras (--seed, --compute_dtype, --lstm_gate_compute, --remat,
 --checkpointer {npz,torch} in place of {npz,orbax}, --run_name,
 --graceful_preemption, --reference_literal), the kernel switches
 --use_kernel / --use_kernel_gates in place of --use_pallas,
---image_height / --image_width, and --device (default cuda). Left out
-are the TPU and multi-host flags (--num_devices, --spatial_parallel,
---scan_unroll, --pad_gate_convs, --use_pallas, --coordinator_address,
---num_processes, --process_id).
+--image_height / --image_width, --device (default cuda), and the
+data-parallel flags --num_devices, --spatial_parallel (1 only) and
+--coordinator_address / --num_processes / --process_id, on a
+torch.distributed process group (parallel/multihost.py). Left out are
+the v5e lowering flags (--scan_unroll, --pad_gate_convs, --use_pallas).
+
+Data parallelism runs one process per GPU. Two processes on one host:
+
+  python -m pivp_tpu_torch.training.train_cli --coordinator_address \
+      127.0.0.1:29500 --num_processes 2 --process_id 0 ... &
+  python -m pivp_tpu_torch.training.train_cli --coordinator_address \
+      127.0.0.1:29500 --num_processes 2 --process_id 1 ...
+
+(NCCL on GPUs, a GPU for each rank; gloo on the CPU).
+--batch_size is the global batch, which the ranks share equally.
 
 Usage: python -m pivp_tpu_torch.training.train_cli [OPTIONS]
 """
@@ -129,6 +140,30 @@ from pivp_tpu_torch.utils import logging_utils
                    'LITERAL semantics (detached scheduled sampling, '
                    'mask-softmax scramble). 0 (default) = original-TF-'
                    'intent semantics.')
+@click.option('--num_devices', type=click.INT, default=0,
+              help='Data-parallel devices (0 = all). One process drives '
+                   'one GPU, so this is the process group\'s ranks: 0 = '
+                   'every rank; N > 0 must equal --num_processes, else '
+                   'it raises.')
+@click.option('--spatial_parallel', type=click.INT, default=1,
+              help='Spatial (image-height) model-parallel ways on top of '
+                   'data parallelism. Not ported yet: 1 = off, and any '
+                   'value above 1 raises (ROADMAP.md, item 7).')
+@click.option('--coordinator_address', type=click.STRING, default='',
+              help='Multi-process mode: host:port of process 0 (the '
+                   'torch.distributed TCP rendezvous). Launch one '
+                   'identical process per GPU, each with --num_processes '
+                   'and its own --process_id; batches are assembled from '
+                   'per-rank shards; npz artifacts and full-state.pt are '
+                   'written by process 0 (shared filesystem). Empty '
+                   '(default) = single-process, or the WORLD_SIZE/RANK '
+                   'environment that torchrun sets.')
+@click.option('--num_processes', type=click.INT, default=0,
+              help='Multi-process: total process count (with '
+                   '--coordinator_address).')
+@click.option('--process_id', type=click.INT, default=-1,
+              help='Multi-process: this process\'s id in [0, '
+                   'num_processes).')
 @click.option('--device', type=click.Choice(['cuda', 'cpu']),
               default='cuda', help='Torch device to run on.')
 def main(data_dir, output_dir, event_log_dir, num_iterations,
@@ -140,63 +175,84 @@ def main(data_dir, output_dir, event_log_dir, num_iterations,
          use_kernel_gates, fused_cdna, merge_output_convs, u8_transfer,
          grad_accum, steps_per_call, prefetch, lazy_load, synthetic,
          profile_dir, checkpointer, run_name, graceful_preemption,
-         reference_literal, device):
+         reference_literal, num_devices, spatial_parallel,
+         coordinator_address, num_processes, process_id, device):
     """Train the video prediction model on processed robot-push data."""
     logging_utils.setup_logging(
         logging.DEBUG if debug else logging.INFO)
     logger = logging.getLogger(__name__)
 
-    cfg = TrainConfig(
-        data_dir=data_dir, output_dir=output_dir,
-        event_log_dir=event_log_dir, num_iterations=num_iterations,
-        pretrained_model=pretrained_model,
-        pretrained_state=pretrained_state,
-        sequence_length=sequence_length, context_frames=context_frames,
-        use_state=bool(use_state), model_type=model_type,
-        num_masks=num_masks, schedsamp_k=schedsamp_k,
-        train_val_split=train_val_split, batch_size=batch_size,
-        learning_rate=learning_rate,
-        validation_interval=validation_interval,
-        save_interval=save_interval, debug=bool(debug), seed=seed,
-        image_height=image_height, image_width=image_width,
-        compute_dtype=compute_dtype, lstm_gate_compute=lstm_gate_compute,
-        remat=bool(remat), use_kernel=bool(use_kernel),
-        use_kernel_gates=bool(use_kernel_gates),
-        fused_cdna=bool(fused_cdna),
-        merge_output_convs=bool(merge_output_convs),
-        u8_transfer=bool(u8_transfer), grad_accum=grad_accum,
-        reference_literal=bool(reference_literal), device=device,
-        steps_per_call=steps_per_call, prefetch=prefetch,
-        lazy_load=bool(lazy_load), checkpointer=checkpointer,
-        graceful_preemption=bool(graceful_preemption),
-    )
+    import torch.distributed as dist
 
-    mcfg = cfg.model_config()
-    logger.info('Training the model')
-    logger.info('Model: %s', model_type)
-    logger.info('# Minibatch-size: %s', batch_size)
-    logger.info('# Num iterations: %s', num_iterations)
-    logger.info('Device: %s  compute dtype: %s  kernels: %s/%s  '
-                'fused_cdna: %s  u8_transfer: %s', device,
-                mcfg.compute_dtype, mcfg.use_kernel, mcfg.use_kernel_gates,
-                mcfg.fused_cdna, cfg.u8_transfer)
+    from pivp_tpu_torch.parallel import multihost
 
-    arrays = None
-    if synthetic:
-        from pivp_tpu_torch.data import synthetic as synth
-        arrays = synth.generate_sequences(
-            synthetic, sequence_length, image_height, image_width,
-            seed=seed)
-        logger.info('Using %d synthetic sequences', synthetic)
+    # Join the process group before anything touches the device; a
+    # group that this call creates is left again at its end.
+    had_group = dist.is_initialized()
+    if coordinator_address:
+        multihost.initialize(coordinator_address, num_processes,
+                             process_id, device=device)
+    else:
+        multihost.initialize(device=device)   # WORLD_SIZE/RANK, if set
+    if dist.is_initialized():
+        logger.info('Multi-process: process %d/%d',
+                    *multihost.process_info())
+    try:
+        cfg = TrainConfig(
+            data_dir=data_dir, output_dir=output_dir,
+            event_log_dir=event_log_dir, num_iterations=num_iterations,
+            pretrained_model=pretrained_model,
+            pretrained_state=pretrained_state,
+            sequence_length=sequence_length, context_frames=context_frames,
+            use_state=bool(use_state), model_type=model_type,
+            num_masks=num_masks, schedsamp_k=schedsamp_k,
+            train_val_split=train_val_split, batch_size=batch_size,
+            learning_rate=learning_rate,
+            validation_interval=validation_interval,
+            save_interval=save_interval, debug=bool(debug), seed=seed,
+            image_height=image_height, image_width=image_width,
+            compute_dtype=compute_dtype, lstm_gate_compute=lstm_gate_compute,
+            remat=bool(remat), use_kernel=bool(use_kernel),
+            use_kernel_gates=bool(use_kernel_gates),
+            fused_cdna=bool(fused_cdna),
+            merge_output_convs=bool(merge_output_convs),
+            u8_transfer=bool(u8_transfer), grad_accum=grad_accum,
+            reference_literal=bool(reference_literal), device=device,
+            steps_per_call=steps_per_call, prefetch=prefetch,
+            lazy_load=bool(lazy_load), checkpointer=checkpointer,
+            graceful_preemption=bool(graceful_preemption),
+            num_devices=num_devices, spatial_parallel=spatial_parallel,
+        )
 
-    from pivp_tpu_torch.training import loop
-    from pivp_tpu_torch.utils import profiling
+        mcfg = cfg.model_config()
+        logger.info('Training the model')
+        logger.info('Model: %s', model_type)
+        logger.info('# Minibatch-size: %s', batch_size)
+        logger.info('# Num iterations: %s', num_iterations)
+        logger.info('Device: %s  compute dtype: %s  kernels: %s/%s  '
+                    'fused_cdna: %s  u8_transfer: %s', device,
+                    mcfg.compute_dtype, mcfg.use_kernel, mcfg.use_kernel_gates,
+                    mcfg.fused_cdna, cfg.u8_transfer)
 
-    with profiling.trace(profile_dir):
-        result = loop.run_training(cfg, arrays=arrays,
-                                   run_name=run_name or None)
-    logger.info('Done; checkpoints in %s', result["save_dir"])
-    return result
+        arrays = None
+        if synthetic:
+            from pivp_tpu_torch.data import synthetic as synth
+            arrays = synth.generate_sequences(
+                synthetic, sequence_length, image_height, image_width,
+                seed=seed)
+            logger.info('Using %d synthetic sequences', synthetic)
+
+        from pivp_tpu_torch.training import loop
+        from pivp_tpu_torch.utils import profiling
+
+        with profiling.trace(profile_dir):
+            result = loop.run_training(cfg, arrays=arrays,
+                                       run_name=run_name or None)
+        logger.info('Done; checkpoints in %s', result["save_dir"])
+        return result
+    finally:
+        if not had_group:
+            multihost.shutdown()
 
 
 if __name__ == '__main__':

@@ -8,6 +8,7 @@ there with `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`
 
 import contextlib
 import dataclasses
+import os
 import threading
 
 import numpy as np
@@ -401,6 +402,73 @@ def test_graphed_steps_equal_eager_steps_on_the_card(cuda, head):
     for i, (loss, psnr) in enumerate(want):
         assert torch.equal(got["loss"][i], loss)
         assert torch.equal(got["psnr_all"][i], psnr)
+
+
+def test_native_assembler_feeds_make_train_multi_on_the_card(cuda):
+    """The loop's payload path on the card: the native assembler gathers
+    a K-step call (uint8 frames) from the batcher's indices, bit for bit
+    the stacked batches, and make_train_multi replays its captured step
+    on it."""
+    from pivp_tpu_torch.data import assembler, dataset, native, synthetic
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg, new_state, _ = _graph_setup(cuda, {})
+    arrays = synthetic.generate_sequences(6, 5, 32, 32, seed=2)
+    idx = np.stack([dataset.EpochBatcher(arrays, 2, seed=1).next_indices()
+                    for _ in range(2)])
+    before = native.assemble.calls
+    payload = assembler.assemble_calls(arrays, idx, quantize=True)
+    assert native.assemble.calls == before + 1
+    for got, want in zip(payload, assembler.assemble_calls_plain(
+            arrays, idx, quantize=True)):
+        assert np.array_equal(got, want)
+    state, multi = new_state(), ts.make_train_multi(cfg)
+    call = ts.stage_call(cfg, payload, 6100, 3, pin=True)
+    _, m = multi(state, call, 6100, 3)
+    torch.cuda.synchronize()
+    assert multi.captured is not None and state.step == 2
+    assert torch.isfinite(m["loss"]).all()
+    assert all(torch.isfinite(p).all() for p in state.leaves())
+
+
+def test_world_one_nccl_group_captured_step_equals_no_group(cuda):
+    """A world-1 NCCL process group around the captured train step: the
+    gradient all-reduce is captured in the graph, and two replays equal
+    two replays without a group bit for bit under cudnn.deterministic."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pivp_tpu_torch.parallel import multihost
+    from pivp_tpu_torch.parallel import train_step as ts
+
+    cfg, new_state, batches = _graph_setup(cuda, {})
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = new_state()
+        _, want = ts.make_train_multi(cfg)(alone, batches, 6100, 3)
+        assert multihost.initialize(f"127.0.0.1:{port}", 1, 0,
+                                    device="cuda")
+        try:
+            assert dist.get_backend() == "nccl"
+            dp = multihost.data_parallel()
+            grouped, multi = new_state(), ts.make_train_multi(cfg, dp=dp)
+            _, got = multi(grouped, batches, 6100, 3)
+            torch.cuda.synchronize()
+        finally:
+            multihost.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert multi.captured is not None
+    for x, y in zip(grouped.leaves(), alone.leaves()):
+        assert torch.equal(x, y)
+    assert torch.equal(got["loss"], want["loss"])
+    assert torch.equal(got["psnr_all"], want["psnr_all"])
 
 
 @contextlib.contextmanager

@@ -18,11 +18,10 @@ from pivp_tpu import config as jconfig
 from pivp_tpu.parallel import train_step as jts
 from pivp_tpu.utils.checkpoint import flatten_pytree
 from pivp_tpu_torch import config as tconfig
-from pivp_tpu_torch.data import dataset, synthetic
+from pivp_tpu_torch.data import assembler, dataset, synthetic
 from pivp_tpu_torch.models import predictor
 from pivp_tpu_torch.ops import sampling
 from pivp_tpu_torch.parallel import train_step as ts
-from pivp_tpu_torch.training import loop
 from pivp_tpu_torch.utils import weights
 
 NARROW = dict(enc_channels=(8, 8, 8, 8, 16, 8, 8),
@@ -45,7 +44,7 @@ def _batches(k=K, seed=0):
                                  acts[i * B:(i + 1) * B],
                                  stas[i * B:(i + 1) * B]) for i in range(k)]
     stacked = tuple(np.stack(col) for col in zip(*per))
-    return (loop._quantize_images(stacked[0]),) + stacked[1:]
+    return (assembler.quantize_images(stacked[0]),) + stacked[1:]
 
 
 def _state(cfg, dtype=torch.float32):
